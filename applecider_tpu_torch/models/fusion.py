@@ -1,0 +1,111 @@
+"""AppleCider four-modality late-fusion model (counterpart of
+``applecider_tpu/models/fusion.py``) and ``build_fusion_model``.
+
+Each encoder's embedding is projected to ``hidden_dim`` in f32, L2
+normalised and fused by average (or concatenation, in the order
+photometry, image+metadata, spectra) before the f32 classifier.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from applecider_tpu_torch.config import Config, compute_dtype, load_defaults
+from applecider_tpu_torch.device import resolve_device
+from applecider_tpu_torch.models.astrominn import AstroMiNNModule
+from applecider_tpu_torch.models.baseline_cls import BaselineCLSModule
+from applecider_tpu_torch.models.layers import Linear, init_weights
+from applecider_tpu_torch.models.spectranet import SpectraNetModule
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """``x / max(||x||, eps)`` over the last dim, the norm taken in f32."""
+    norm = torch.sqrt(torch.sum(torch.square(x.float()), dim=-1, keepdim=True))
+    return (x / torch.clamp(norm, min=eps)).to(x.dtype)
+
+
+class AppleCiderModule(nn.Module):
+    def __init__(self, photometry_encoder: BaselineCLSModule, spectra_encoder: SpectraNetModule,
+                 img_meta_encoder: AstroMiNNModule, photometry_dim: int, spectra_dim: int,
+                 img_meta_dim: int, hidden_dim: int = 5, fusion: str = "avg",
+                 num_classes: int = 5):
+        super().__init__()
+        if fusion not in ("avg", "concat"):
+            raise NotImplementedError(f"fusion={fusion!r}")
+        self.fusion = fusion
+        self.num_classes = num_classes
+        self.photometry_encoder = photometry_encoder
+        self.spectra_encoder = spectra_encoder
+        self.img_meta_encoder = img_meta_encoder
+        self.photometry_proj = Linear(photometry_dim, hidden_dim)
+        self.spectra_proj = Linear(spectra_dim, hidden_dim)
+        self.img_metadata_proj = Linear(img_meta_dim, hidden_dim)
+        self.fc = Linear(hidden_dim * (3 if fusion == "concat" else 1), num_classes)
+
+    def forward(self, photometry, photo_mask, metadata, images, spectra,
+                spec_gather: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
+        """photometry (B, L, 7), photo_mask (B, L) bool, metadata (B, 24),
+        images (B, 63, 63, 3) NHWC, spectra (B or S+1, G) -> (B, C) f32 logits.
+
+        ``spec_gather`` (B,): ``spectra`` is a compact block whose row 0 is
+        the zero spectrum and each batch row takes the embedding of its row
+        (the FusedSpectraStream layout). Without it, a one-row ``spectra``
+        broadcasts over the batch.
+        """
+        p = self.photometry_encoder(photometry, photo_mask, kernels=kernels)
+        s = self.spectra_encoder(spectra, kernels=kernels)
+        im = self.img_meta_encoder(metadata, images)
+        return self.fuse(p, s, im, spec_gather)
+
+    def fuse(self, p: torch.Tensor, s: torch.Tensor, im: torch.Tensor,
+             spec_gather: torch.Tensor | None = None) -> torch.Tensor:
+        """Encoder embeddings -> logits: project, L2-normalise, fuse, classify."""
+        p_emb = l2_normalize(self.photometry_proj(p))
+        s_emb = l2_normalize(self.spectra_proj(s))
+        im_emb = l2_normalize(self.img_metadata_proj(im))
+        if spec_gather is not None:
+            s_emb = s_emb[spec_gather]
+        elif s_emb.shape[0] == 1 and p_emb.shape[0] != 1:
+            s_emb = s_emb.expand(p_emb.shape[0], -1)
+        if self.fusion == "concat":
+            emb = torch.cat([p_emb, im_emb, s_emb], dim=-1)
+        else:
+            emb = (p_emb + im_emb + s_emb) / 3.0
+        return self.fc(emb).float()
+
+
+def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dtype | None = None,
+                       generator: torch.Generator | None = None) -> AppleCiderModule:
+    """The AppleCider model from ``cfg`` (default: the published widths),
+    weights drawn from ``generator``, in eval mode on ``device``.
+
+    ``dtype`` defaults to the config's ``train.compute_dtype``. The model
+    runs on CUDA unless ``device="cpu"`` is asked for.
+    """
+    dev = resolve_device(device)
+    cfg = load_defaults() if cfg is None else cfg
+    dt = compute_dtype(cfg) if dtype is None else dtype
+    pc = cfg["model"]["BaselineCLS"]
+    sc = cfg["model"]["SpectraNet"]
+    ac = cfg["model"]["AstroMiNN"]
+    fc = cfg["model"]["AppleCider"]
+    photometry = BaselineCLSModule(int(pc["d_model"]), int(pc["n_heads"]), int(pc["n_layers"]),
+                                   dtype=dt)
+    spectra = SpectraNetModule(
+        channels=tuple(sc["channels"]), depths=tuple(sc["depths"]),
+        kernel_sizes_per_stage=tuple(tuple(k) for k in sc["kernel_sizes_per_stage"]), dtype=dt)
+    moe_out = int(ac["moe_output_dims"])
+    img_meta = AstroMiNNModule(
+        num_experts=int(ac["num_mlp_experts"]), towers_hidden_dims=int(ac["towers_hidden_dims"]),
+        towers_outdims=int(ac["towers_outdims"]), fusion_hidden_dims=int(ac["fusion_hidden_dims"]),
+        fusion_outdims=int(ac["fusion_outdims"]), moe_output_dims=moe_out,
+        backbone_depths=tuple(ac["backbone_depths"]), backbone_dims=tuple(ac["backbone_dims"]),
+        dtype=dt)
+    model = AppleCiderModule(
+        photometry, spectra, img_meta, photometry_dim=int(pc["d_model"]),
+        spectra_dim=spectra.head_fc1.out_features,
+        img_meta_dim=moe_out, hidden_dim=int(fc["hidden_dim"]), fusion=str(fc["fusion"]),
+        num_classes=int(fc["num_classes"]))
+    init_weights(model, generator)
+    return model.to(dev).eval().requires_grad_(False)

@@ -1,0 +1,156 @@
+"""Shared layers with the JAX package's numerics, eval path only.
+
+Counterparts of ``applecider_tpu/models/layers.py``. Parameters are kept in
+f32, under the flax names (``kernel`` becomes ``weight``, LayerNorm's
+``scale`` becomes ``weight``), and cast to a layer's compute ``dtype`` where
+it is used, as flax does. ``dtype=None`` follows flax's ``astype(None)``:
+Linear computes in f32, LayerNorm returns its input's dtype.
+
+Modules that hold a kernel of the serving path take ``kernels`` in their
+forward: True (the default) calls the kernel wrapper, which launches the
+hand-written kernel on a CUDA tensor; False calls the plain PyTorch version
+directly, the yardstick that ``chip_smoke.py`` compares the path with.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from applecider_tpu_torch.ops.attention import masked_attention, masked_attention_reference
+from applecider_tpu_torch.ops.ln_gelu import ln_gelu, ln_gelu_reference
+
+
+def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator | None) -> None:
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator | None = None) -> nn.Module:
+    """Draw every parameter of ``module`` from ``generator``, in module order,
+    with the torch-default initialisers the JAX package copies."""
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
+    return module
+
+
+class Linear(nn.Module):
+    """Dense layer: ``x.to(dtype) @ W.to(dtype) + b.to(dtype)``, f32 when
+    ``dtype`` is None; the bias is added after the product is rounded."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def reset_parameters(self, generator=None) -> None:
+        bound = 1.0 / math.sqrt(self.in_features)
+        uniform_(self.weight, bound, generator)
+        uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.float32
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim with f32 statistics; returns ``dtype``
+    (or the input's dtype when None)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
+        return y.to(self.dtype or x.dtype)
+
+
+class LayerNormGelu(LayerNorm):
+    """LayerNorm followed by exact GELU in one pass (kernel K3 forward).
+
+    Same parameters as LayerNorm. Follows the JAX package's fused path: the
+    GELU is computed in f32 before the single rounding to the output dtype.
+    """
+
+    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+        fn = ln_gelu if kernels else ln_gelu_reference
+        y = fn(x.contiguous(), self.weight, self.bias, self.eps)
+        return y.to(self.dtype or x.dtype)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Fused-qkv self-attention with a key-padding mask (True = padded);
+    the attention itself is kernel K2."""
+
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj = Linear(d_model, 3 * d_model, dtype=dtype)
+        self.out_proj = Linear(d_model, d_model, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor | None = None,
+                kernels: bool = True) -> torch.Tensor:
+        B, L, D = x.shape
+        H = self.num_heads
+        q, k, v = (t.reshape(B, L, H, D // H).transpose(1, 2).contiguous()
+                   for t in self.in_proj(x).split(D, dim=-1))
+        mask = None if key_padding_mask is None else key_padding_mask.contiguous()
+        fn = masked_attention if kernels else masked_attention_reference
+        out = fn(q, k, v, mask)
+        return self.out_proj(out.transpose(1, 2).reshape(B, L, D))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN block (torch ``nn.TransformerEncoderLayer`` defaults, ReLU),
+    eval path: x = LN1(x + attn(x)); x = LN2(x + W2 relu(W1 x))."""
+
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.self_attn = MultiHeadSelfAttention(d_model, num_heads, dtype=dtype)
+        self.norm1 = LayerNorm(d_model, dtype=dtype)
+        self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
+        self.linear2 = Linear(dim_feedforward, d_model, dtype=dtype)
+        self.norm2 = LayerNorm(d_model, dtype=dtype)
+
+    def forward(self, x, key_padding_mask=None, kernels: bool = True):
+        x = self.norm1(x + self.self_attn(x, key_padding_mask, kernels=kernels))
+        h = self.linear2(torch.relu(self.linear1(x)))
+        return self.norm2(x + h)
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of post-LN layers ``layer_0 .. layer_{n-1}``, no final norm."""
+
+    def __init__(self, num_layers: int, d_model: int, num_heads: int, dim_feedforward: int,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", TransformerEncoderLayer(
+                d_model, num_heads, dim_feedforward, dtype=dtype))
+
+    def forward(self, x, key_padding_mask=None, kernels: bool = True):
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x, key_padding_mask, kernels=kernels)
+        return x

@@ -1,0 +1,79 @@
+"""K2's plain PyTorch version == the JAX package's Pallas attention kernel
+(interpret mode); the port's attention layers == their flax modules with
+the same weights. f32, atol 1e-5 (two frameworks sum in different orders)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from applecider_tpu.models.layers import MultiHeadSelfAttention as FlaxMHSA
+from applecider_tpu.models.layers import TransformerEncoderLayer as FlaxLayer
+from applecider_tpu.ops.attention import pallas_masked_attention
+from applecider_tpu_torch.models.layers import MultiHeadSelfAttention, TransformerEncoderLayer
+from applecider_tpu_torch.ops.attention import masked_attention, masked_attention_reference
+from applecider_tpu_torch.utils.weights import from_jax_params
+
+
+def _qkv(rng, B, H, L, hd):
+    return [rng.normal(size=(B, H, L, hd)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_plain_attention_matches_pallas_kernel(rng, masked):
+    B, H, L, hd = 2, 4, 33, 16
+    q, k, v = _qkv(rng, B, H, L, hd)
+    mask = None
+    if masked:
+        lengths = rng.integers(1, L + 1, size=B)
+        mask = np.arange(L)[None, :] >= lengths[:, None]
+    want = np.asarray(pallas_masked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if mask is None else jnp.asarray(mask), interpret=True))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    got = masked_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), tmask)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    ref = masked_attention_reference(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), tmask)
+    assert torch.equal(got, ref)  # the CPU wrapper is the plain version
+
+
+def _pad_mask(rng, B, L):
+    lengths = rng.integers(1, L + 1, size=B)
+    return np.arange(L)[None, :] >= lengths[:, None]
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_mhsa_matches_flax(rng, masked):
+    B, L, D, H = 3, 21, 32, 4
+    x = rng.normal(size=(B, L, D)).astype(np.float32)
+    mask = _pad_mask(rng, B, L) if masked else None
+    flax_m = FlaxMHSA(H, 0.0, dtype=jnp.float32, impl="xla")
+    jmask = None if mask is None else jnp.asarray(mask)
+    params = flax_m.init(jax.random.PRNGKey(0), jnp.asarray(x), jmask)["params"]
+    want = np.asarray(flax_m.apply({"params": params}, jnp.asarray(x), jmask))
+
+    m = MultiHeadSelfAttention(D, H, dtype=torch.float32)
+    m.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params)))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    with torch.inference_mode():
+        got = m(torch.from_numpy(x), tmask).numpy()
+        plain = m(torch.from_numpy(x), tmask, kernels=False).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got, plain)
+
+
+def test_encoder_layer_matches_flax(rng):
+    B, L, D, H = 2, 19, 16, 2
+    x = rng.normal(size=(B, L, D)).astype(np.float32)
+    mask = _pad_mask(rng, B, L)
+    flax_m = FlaxLayer(H, 4 * D, 0.0, dtype=jnp.float32, attn_impl="pallas_interpret")
+    params = flax_m.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(mask))["params"]
+    want = np.asarray(flax_m.apply({"params": params}, jnp.asarray(x), jnp.asarray(mask)))
+
+    m = TransformerEncoderLayer(D, H, 4 * D, dtype=torch.float32)
+    m.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params)))
+    with torch.inference_mode():
+        got = m(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -1,0 +1,140 @@
+"""The PyTorch port imports without JAX or the JAX package, and its entry
+points refuse to run without a GPU unless the CPU is asked for."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+MODULES = [
+    "applecider_tpu_torch",
+    "applecider_tpu_torch.config",
+    "applecider_tpu_torch.device",
+    "applecider_tpu_torch.ops.kernel",
+    "applecider_tpu_torch.ops.merge_scan",
+    "applecider_tpu_torch.ops.attention",
+    "applecider_tpu_torch.ops.ln_gelu",
+    "applecider_tpu_torch.ops.conv1d",
+    "applecider_tpu_torch.ops.moe",
+    "applecider_tpu_torch.models",
+    "applecider_tpu_torch.models.layers",
+    "applecider_tpu_torch.models.time2vec",
+    "applecider_tpu_torch.models.baseline_cls",
+    "applecider_tpu_torch.models.spectranet",
+    "applecider_tpu_torch.models.convnext",
+    "applecider_tpu_torch.models.astrominn",
+    "applecider_tpu_torch.models.fusion",
+    "applecider_tpu_torch.infer",
+    "applecider_tpu_torch.infer.stream",
+    "applecider_tpu_torch.utils",
+    "applecider_tpu_torch.utils.weights",
+    "applecider_tpu_torch.testing",
+    "applecider_tpu_torch.tools",
+    "applecider_tpu_torch.tools.profile_serving",
+]
+
+
+def test_port_imports_with_jax_blocked():
+    """Every module of the port imports in a fresh interpreter whose import
+    system refuses ``jax``, ``flax`` and ``applecider_tpu``."""
+    code = textwrap.dedent(f"""
+        import importlib, importlib.abc, sys
+
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "applecider_tpu")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked import of {{name}}")
+                return None
+
+        for name in list(sys.modules):
+            if name.split(".")[0] in BLOCKED:
+                del sys.modules[name]
+        sys.meta_path.insert(0, Block())
+        for m in {MODULES!r}:
+            importlib.import_module(m)
+        leaked = [n for n in sys.modules if n.split(".")[0] in BLOCKED]
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_port_config_copies_the_published_widths():
+    """The port's own default_config.toml holds the JAX package's values for
+    every key it copies: from the JAX config file, or, for the AstroMiNN
+    keys that file leaves out, from the flax module's defaults."""
+    import tomllib
+
+    from applecider_tpu.models.astrominn import AstroMiNNModule
+    from applecider_tpu_torch.config import load_defaults
+
+    with open(REPO / "applecider_tpu" / "default_config.toml", "rb") as f:
+        jax_cfg = tomllib.load(f)
+    port = load_defaults()
+    for section in ("BaselineCLS", "SpectraNet", "AstroMiNN", "AppleCider"):
+        for key, value in port["model"][section].items():
+            want = jax_cfg["model"][section].get(key)
+            if want is None and section == "AstroMiNN":
+                want = getattr(AstroMiNNModule, key)
+            assert value == (list(want) if isinstance(want, tuple) else want), (section, key)
+    assert port["train"]["compute_dtype"] == jax_cfg["train"]["compute_dtype"]
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    """With no usable GPU, the default device raises; ``device="cpu"`` runs."""
+    from applecider_tpu_torch.config import load_defaults
+    from applecider_tpu_torch.device import resolve_device
+    from applecider_tpu_torch.infer.stream import (
+        AlertStreamPipeline, FusedSpectraStream, LengthBinnedFeeder,
+    )
+    from applecider_tpu_torch.models import build_fusion_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_defaults()
+    for k, v in [("model.BaselineCLS.d_model", 8), ("model.BaselineCLS.n_heads", 1),
+                 ("model.BaselineCLS.n_layers", 1), ("model.SpectraNet.channels", [2]),
+                 ("model.SpectraNet.depths", [1]), ("model.SpectraNet.kernel_sizes_per_stage", [[3]]),
+                 ("model.AstroMiNN.backbone_depths", [1]), ("model.AstroMiNN.backbone_dims", [4])]:
+        cfg.set(k, v)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_fusion_model(cfg)
+    model = build_fusion_model(cfg, device="cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AlertStreamPipeline(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FusedSpectraStream(model)
+    stream = FusedSpectraStream(model, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LengthBinnedFeeder(stream)
+    LengthBinnedFeeder(stream, device="cpu")
+
+
+def test_kernel_wrappers_take_cpu_or_cuda_only():
+    """On a CPU tensor a wrapper runs its plain version; any other device
+    is refused rather than routed to the plain version."""
+    from applecider_tpu_torch.ops import attention, ln_gelu, merge_scan
+
+    t = torch.zeros((2, 4))
+    band = torch.zeros((2, 4), dtype=torch.int32)
+    valid = torch.ones((2, 4), dtype=torch.bool)
+    assert merge_scan.seg_ids(t, band, valid).dtype == torch.int32
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        merge_scan.seg_ids(t.to("meta"), band.to("meta"), valid.to("meta"))
+    q = torch.zeros((1, 1, 3, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention.masked_attention(q.to("meta"), q.to("meta"), q.to("meta"), None)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ln_gelu.ln_gelu(q.to("meta"), torch.ones(8, device="meta"), torch.zeros(8, device="meta"))
