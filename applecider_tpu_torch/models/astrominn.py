@@ -1,7 +1,11 @@
 """AstroMiNN image + metadata mixture of experts (counterpart of
 ``applecider_tpu/models/astrominn.py``): eight gated-residual metadata
 towers over fixed column slices, a ConvNeXt image tower with a tanh-gated
-head, a sigmoid router and a top-2 dense dispatch over the experts."""
+head, a sigmoid router and a top-2 dense dispatch over the experts.
+
+Dropout sites, live in ``train()`` mode, at the rates the flax modules
+hard-code: 0.25 on each tower block's gate and main branches, 0.4 in the
+image head, 0.3 on the router."""
 
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ from torch import nn
 
 from applecider_tpu_torch.models.convnext import ConvNeXt
 from applecider_tpu_torch.models.layers import LayerNorm, Linear, gelu_exact
+from applecider_tpu_torch.ops.dropout import FastDropout
 from applecider_tpu_torch.ops.moe import topk_dense_dispatch
 
 # metadata column slices (the JAX package's TOWER_SLICES)
@@ -26,22 +31,25 @@ TOWER_SLICES = {
 
 
 class ResidualTowerBlock(nn.Module):
-    """out = main(h) * sigmoid(gate(h)) + skip(x), h = GELU(start(x))."""
+    """out = main(h) * sigmoid(gate(h)) + skip(x), h = GELU(start(x)); each
+    branch drops ``dropout`` after its LayerNorm."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, output_dim: int,
+    def __init__(self, in_dim: int, hidden_dim: int, output_dim: int, dropout: float = 0.25,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.start = Linear(in_dim, hidden_dim, dtype=dtype)
         self.gate_norm = LayerNorm(hidden_dim, dtype=dtype)
+        self.gate_drop = FastDropout(dropout)
         self.gate_fc = Linear(hidden_dim, output_dim, dtype=dtype)
         self.main_norm = LayerNorm(hidden_dim, dtype=dtype)
+        self.main_drop = FastDropout(dropout)
         self.main_fc = Linear(hidden_dim, output_dim, dtype=dtype)
         self.skip = Linear(in_dim, output_dim, dtype=dtype) if in_dim != output_dim else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = gelu_exact(self.start(x))
-        g = torch.sigmoid(self.gate_fc(self.gate_norm(h)))
-        m = self.main_fc(self.main_norm(h))
+        g = torch.sigmoid(self.gate_fc(self.gate_drop(self.gate_norm(h))))
+        m = self.main_fc(self.main_drop(self.main_norm(h)))
         return m * g + (x if self.skip is None else self.skip(x))
 
 
@@ -55,6 +63,7 @@ class SplitHeadImageTower(nn.Module):
         self.backbone = ConvNeXt(depths, dims, dtype=dtype)
         self.main_norm = LayerNorm(f, dtype=dtype)
         self.main_fc1 = Linear(f, f // 2, dtype=dtype)
+        self.main_drop = FastDropout(0.4)
         self.main_fc2 = Linear(f // 2, f, dtype=dtype)
         self.main_fc3 = Linear(f, outdims, dtype=dtype)
         self.aux_norm = LayerNorm(f, dtype=dtype)
@@ -62,7 +71,7 @@ class SplitHeadImageTower(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feats = self.backbone(x)
-        m = torch.relu(self.main_fc1(self.main_norm(gelu_exact(feats))))
+        m = self.main_drop(torch.relu(self.main_fc1(self.main_norm(gelu_exact(feats)))))
         m = self.main_fc3(self.main_fc2(m))
         a = torch.tanh(self.aux_fc(self.aux_norm(feats)))
         return m * a
@@ -73,7 +82,7 @@ class AstroMiNNModule(nn.Module):
                  towers_outdims: int = 32, fusion_hidden_dims: int = 128,
                  fusion_outdims: int = 32, moe_output_dims: int = 5,
                  backbone_depths=(3, 3, 9, 3), backbone_dims=(96, 192, 384, 768),
-                 dtype: torch.dtype | None = None):
+                 router_dropout: float = 0.3, dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         self.num_experts = num_experts
@@ -91,6 +100,7 @@ class AstroMiNNModule(nn.Module):
         self.image_tower = SplitHeadImageTower(to, backbone_depths, backbone_dims, dtype=dtype)
         fusion_dims = 6 * to + 3 * fo
         self.router_fc1 = Linear(fusion_dims, fusion_dims // 2, dtype=dtype)
+        self.router_drop = FastDropout(router_dropout)
         self.router_fc2 = Linear(fusion_dims // 2, num_experts, dtype=dtype)
         for i in range(num_experts):
             self.add_module(f"expert_{i}", ResidualTowerBlock(
@@ -109,7 +119,7 @@ class AstroMiNNModule(nn.Module):
             tower("psf_tower"), tower("mag_tower"), tower("coord_tower"),
             tower("mega_tower"), img, tower("lc_tower"),
         ], dim=-1)
-        r = torch.tanh(self.router_fc1(all_feats))
+        r = self.router_drop(torch.tanh(self.router_fc1(all_feats)))
         router_weights = torch.sigmoid(self.router_fc2(r)).float()
         expert_outs = torch.stack(
             [getattr(self, f"expert_{i}")(all_feats) for i in range(self.num_experts)],

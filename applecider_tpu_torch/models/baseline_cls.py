@@ -3,6 +3,8 @@
 Counterpart of ``applecider_tpu/models/baseline_cls.py``: Linear(7 -> d) +
 Time2Vec of the dt channel, a zero-init CLS token prepended (never
 padded), the post-LN encoder, LayerNorm of the CLS token, returned in f32.
+``dropout`` (0.40 at the published widths) is threaded through every
+encoder layer; the time embedding takes none, as in the classifier.
 """
 
 from __future__ import annotations
@@ -19,14 +21,15 @@ N_EVENT_FEATURES = 7
 class BaselineCLSEncoder(nn.Module):
     """Projection + Time2Vec + CLS + transformer; returns all L+1 tokens."""
 
-    def __init__(self, d_model: int, n_heads: int, n_layers: int,
+    def __init__(self, d_model: int, n_heads: int, n_layers: int, dropout: float = 0.0,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.d_model = d_model
         self.in_proj = Linear(N_EVENT_FEATURES, d_model, dtype=dtype)
         self.time2vec = Time2Vec(d_model, dtype=dtype)
         self.cls_tok = nn.Parameter(torch.empty(1, 1, d_model))
-        self.encoder = TransformerEncoder(n_layers, d_model, n_heads, 4 * d_model, dtype=dtype)
+        self.encoder = TransformerEncoder(n_layers, d_model, n_heads, 4 * d_model, dropout,
+                                          dtype=dtype)
 
     def reset_parameters(self, generator=None) -> None:
         with torch.no_grad():
@@ -47,9 +50,9 @@ class BaselineCLSModule(nn.Module):
     embedding, (B, d_model) f32."""
 
     def __init__(self, d_model: int = 128, n_heads: int = 8, n_layers: int = 4,
-                 dtype: torch.dtype | None = None):
+                 dropout: float = 0.40, dtype: torch.dtype | None = None):
         super().__init__()
-        self.trunk = BaselineCLSEncoder(d_model, n_heads, n_layers, dtype=dtype)
+        self.trunk = BaselineCLSEncoder(d_model, n_heads, n_layers, dropout, dtype=dtype)
         self.norm = LayerNorm(d_model, dtype=dtype)
 
     def forward(self, x, pad_mask, kernels: bool = True):

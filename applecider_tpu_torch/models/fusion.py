@@ -1,5 +1,7 @@
 """AppleCider four-modality late-fusion model (counterpart of
-``applecider_tpu/models/fusion.py``) and ``build_fusion_model``.
+``applecider_tpu/models/fusion.py``), ``build_fusion_model``, and the
+pieces of ``AppleCiderTask`` the training step needs: ``fusion_loss`` and
+``to_tensor``.
 
 Each encoder's embedding is projected to ``hidden_dim`` in f32, L2
 normalised and fused by average (or concatenation, in the order
@@ -8,6 +10,7 @@ photometry, image+metadata, spectra) before the f32 classifier.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -17,6 +20,7 @@ from applecider_tpu_torch.models.astrominn import AstroMiNNModule
 from applecider_tpu_torch.models.baseline_cls import BaselineCLSModule
 from applecider_tpu_torch.models.layers import Linear, init_weights
 from applecider_tpu_torch.models.spectranet import SpectraNetModule
+from applecider_tpu_torch.ops.losses import cross_entropy, focal_loss
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -78,7 +82,9 @@ class AppleCiderModule(nn.Module):
 def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dtype | None = None,
                        generator: torch.Generator | None = None) -> AppleCiderModule:
     """The AppleCider model from ``cfg`` (default: the published widths),
-    weights drawn from ``generator``, in eval mode on ``device``.
+    weights drawn from ``generator``, in eval mode on ``device``, its
+    parameters frozen for serving; ``train.Trainer`` puts it in train mode
+    and unfreezes them.
 
     ``dtype`` defaults to the config's ``train.compute_dtype``. The model
     runs on CUDA unless ``device="cpu"`` is asked for.
@@ -91,7 +97,7 @@ def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dt
     ac = cfg["model"]["AstroMiNN"]
     fc = cfg["model"]["AppleCider"]
     photometry = BaselineCLSModule(int(pc["d_model"]), int(pc["n_heads"]), int(pc["n_layers"]),
-                                   dtype=dt)
+                                   float(pc["dropout"]), dtype=dt)
     spectra = SpectraNetModule(
         channels=tuple(sc["channels"]), depths=tuple(sc["depths"]),
         kernel_sizes_per_stage=tuple(tuple(k) for k in sc["kernel_sizes_per_stage"]), dtype=dt)
@@ -109,3 +115,38 @@ def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dt
         num_classes=int(fc["num_classes"]))
     init_weights(model, generator)
     return model.to(dev).eval().requires_grad_(False)
+
+
+def fusion_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: Config
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss, accuracy) of ``AppleCiderTask.loss_fn``: focal loss when
+    ``model.AppleCider.criterion`` is "focal" (``focal_gamma``), else cross
+    entropy."""
+    fc = cfg["model"]["AppleCider"]
+    if str(fc.get("criterion", "ce")) == "focal":
+        loss = focal_loss(logits, labels, gamma=float(fc.get("focal_gamma", 2.0)))
+    else:
+        loss = cross_entropy(logits, labels)
+    acc = (logits.argmax(dim=-1) == labels).float().mean()
+    return loss, acc
+
+
+def to_tensor(data_dict: dict) -> tuple[np.ndarray, ...]:
+    """A collated fusion batch as (photometry, pad_mask, metadata, images,
+    spectra, labels) NumPy arrays, as ``AppleCiderTask.to_tensor`` makes
+    them: the four continuous photometry channels normalised by the batch's
+    ``mean``/``std``, the pad mask (True = padded), images NHWC."""
+    data = data_dict["data"]
+    photo = np.asarray(data["photometry"], dtype=np.float32).copy()
+    if "mean" in data:
+        mean = np.asarray(data["mean"], dtype=np.float32)
+        std = np.asarray(data["std"], dtype=np.float32)
+        photo[..., :4] = (photo[..., :4] - mean) / (std + 1e-8)
+    pad_mask = np.asarray(data.get("pad_mask", np.zeros(photo.shape[:2], bool)), dtype=bool)
+    metadata = np.asarray(data["metadata"], dtype=np.float32)
+    images = np.asarray(data["image"], dtype=np.float32)
+    if images.ndim == 4 and images.shape[1] in (1, 3, 4) and images.shape[-1] not in (1, 3, 4):
+        images = np.transpose(images, (0, 2, 3, 1))
+    spectra = np.asarray(data["spectrum"], dtype=np.float32)
+    labels = np.asarray(data.get("label", []), dtype=np.int64)
+    return (photo, pad_mask, metadata, images, spectra, labels)

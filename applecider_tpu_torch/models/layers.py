@@ -1,4 +1,4 @@
-"""Shared layers with the JAX package's numerics, eval path only.
+"""Shared layers with the JAX package's numerics.
 
 Counterparts of ``applecider_tpu/models/layers.py``. Parameters are kept in
 f32, under the flax names (``kernel`` becomes ``weight``, LayerNorm's
@@ -6,10 +6,14 @@ f32, under the flax names (``kernel`` becomes ``weight``, LayerNorm's
 it is used, as flax does. ``dtype=None`` follows flax's ``astype(None)``:
 Linear computes in f32, LayerNorm returns its input's dtype.
 
-Modules that hold a kernel of the serving path take ``kernels`` in their
-forward: True (the default) calls the kernel wrapper, which launches the
-hand-written kernel on a CUDA tensor; False calls the plain PyTorch version
-directly, the yardstick that ``chip_smoke.py`` compares the path with.
+Modules that hold a kernel take ``kernels`` in their forward: True (the
+default) calls the kernel wrapper, which launches the hand-written kernel on
+a CUDA tensor; False calls the plain PyTorch version directly, the
+yardstick that ``chip_smoke.py`` compares the path with.
+
+Dropout sites are live in ``train()`` mode, as flax's are with
+``deterministic=False``; they draw from the ``DropoutRNG`` that
+``ops.dropout.attach_dropout_rng`` gives them.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from applecider_tpu_torch.ops.attention import masked_attention, masked_attention_reference
-from applecider_tpu_torch.ops.ln_gelu import ln_gelu, ln_gelu_reference
+from applecider_tpu_torch.ops.dropout import SEED_BOUND, DropoutRNG, FastDropout
+from applecider_tpu_torch.ops.flash_attention import flash_attention
+from applecider_tpu_torch.ops.ln_gelu import ln_gelu
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator | None) -> None:
@@ -81,15 +87,15 @@ class LayerNorm(nn.Module):
 
 
 class LayerNormGelu(LayerNorm):
-    """LayerNorm followed by exact GELU in one pass (kernel K3 forward).
+    """LayerNorm followed by exact GELU in one pass: kernel K3 forward, and
+    K3 backward under autograd.
 
     Same parameters as LayerNorm. Follows the JAX package's fused path: the
     GELU is computed in f32 before the single rounding to the output dtype.
     """
 
     def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-        fn = ln_gelu if kernels else ln_gelu_reference
-        y = fn(x.contiguous(), self.weight, self.bias, self.eps)
+        y = ln_gelu(x.contiguous(), self.weight, self.bias, self.eps, kernels=kernels)
         return y.to(self.dtype or x.dtype)
 
 
@@ -99,12 +105,21 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """Fused-qkv self-attention with a key-padding mask (True = padded);
-    the attention itself is kernel K2."""
+    """Fused-qkv self-attention with a key-padding mask (True = padded).
 
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype | None = None):
+    While autograd records (q requires grad), the attention is kernel K4,
+    which has a backward: with dropout at ``dropout`` in ``train()`` mode and
+    at 0 in ``eval()`` mode, its Philox seed a host integer drawn from
+    ``dropout_rng.cpu``, one per call, as flax draws one per layer. Without
+    autograd it is kernel K2, the serving kernel, which has no backward.
+    """
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = float(dropout)
+        self.dropout_rng: DropoutRNG | None = None
         self.in_proj = Linear(d_model, 3 * d_model, dtype=dtype)
         self.out_proj = Linear(d_model, d_model, dtype=dtype)
 
@@ -115,27 +130,35 @@ class MultiHeadSelfAttention(nn.Module):
         q, k, v = (t.reshape(B, L, H, D // H).transpose(1, 2).contiguous()
                    for t in self.in_proj(x).split(D, dim=-1))
         mask = None if key_padding_mask is None else key_padding_mask.contiguous()
-        fn = masked_attention if kernels else masked_attention_reference
-        out = fn(q, k, v, mask)
+        if q.requires_grad:
+            rate = self.dropout if self.training else 0.0
+            gen = None if self.dropout_rng is None else self.dropout_rng.cpu
+            seed = int(torch.randint(0, SEED_BOUND, (1,), generator=gen)) if rate > 0.0 else 0
+            out = flash_attention(q, k, v, mask, seed, rate, kernels=kernels)
+        else:
+            out = (masked_attention if kernels else masked_attention_reference)(q, k, v, mask)
         return self.out_proj(out.transpose(1, 2).reshape(B, L, D))
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN block (torch ``nn.TransformerEncoderLayer`` defaults, ReLU),
-    eval path: x = LN1(x + attn(x)); x = LN2(x + W2 relu(W1 x))."""
+    """Post-LN block (torch ``nn.TransformerEncoderLayer`` defaults, ReLU):
+    x = LN1(x + Drop(attn(x))); x = LN2(x + Drop(W2 Drop(relu(W1 x))))."""
 
-    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int, dropout: float = 0.0,
                  dtype: torch.dtype | None = None):
         super().__init__()
-        self.self_attn = MultiHeadSelfAttention(d_model, num_heads, dtype=dtype)
+        self.self_attn = MultiHeadSelfAttention(d_model, num_heads, dropout, dtype=dtype)
+        self.attn_drop = FastDropout(dropout)
         self.norm1 = LayerNorm(d_model, dtype=dtype)
         self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
+        self.ffn_drop = FastDropout(dropout)
         self.linear2 = Linear(dim_feedforward, d_model, dtype=dtype)
+        self.out_drop = FastDropout(dropout)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
 
     def forward(self, x, key_padding_mask=None, kernels: bool = True):
-        x = self.norm1(x + self.self_attn(x, key_padding_mask, kernels=kernels))
-        h = self.linear2(torch.relu(self.linear1(x)))
+        x = self.norm1(x + self.attn_drop(self.self_attn(x, key_padding_mask, kernels=kernels)))
+        h = self.out_drop(self.linear2(self.ffn_drop(torch.relu(self.linear1(x)))))
         return self.norm2(x + h)
 
 
@@ -143,12 +166,12 @@ class TransformerEncoder(nn.Module):
     """Stack of post-LN layers ``layer_0 .. layer_{n-1}``, no final norm."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int, dim_feedforward: int,
-                 dtype: torch.dtype | None = None):
+                 dropout: float = 0.0, dtype: torch.dtype | None = None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
-                d_model, num_heads, dim_feedforward, dtype=dtype))
+                d_model, num_heads, dim_feedforward, dropout, dtype=dtype))
 
     def forward(self, x, key_padding_mask=None, kernels: bool = True):
         for i in range(self.num_layers):

@@ -7,28 +7,45 @@ Run from the root of a checkout on a machine with one NVIDIA GPU::
 Phases, in order; any failure exits non-zero before the result line:
 
 1. device and build: the card's name and power limit, then every kernel of
-   the serving path built from ``applecider_tpu_torch/csrc`` with nvcc;
+   the serving and training paths built from ``applecider_tpu_torch/csrc``
+   with nvcc, one process per source, all started together;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, in f32 and bf16, with kernel, plain
-   and (where one PyTorch call computes the same function) library times;
+   shapes its path gives it, with kernel, plain, bound and (where one
+   PyTorch call computes the same function) library times: K1, K2, K3f as
+   the serving path runs them; K4 forward and backward on injected bits in
+   f32 and bf16; K4's Philox bits against their twin bit for bit, the
+   Philox kernels against the bits kernels fed the same keep mask, and the
+   keep rate over the train shape; K3b at every SpectraNet stage;
 3. the serving path at the full published AppleCider widths: 2048
    synthetic alerts through ``LengthBinnedFeeder(FusedSpectraStream)`` in
    bf16, with every kernel's launch count read from that run alone; then
    256 alerts in f32 (TF32 off) through the kernel path and the plain path
    with the same weights;
-4. one JSON line describing each kernel, then the result line.
+4. the training step at the full widths in bf16: ``Trainer.fit`` for one
+   epoch of 12 steps of 256 samples, with the launch counts of K4 forward,
+   K4 backward, K3f and K3b read from that run alone, a checkpoint written
+   and resumed; then the attention's route by autograd and mode;
+5. training parity: one f32 step (TF32 off, 32 samples, dropout live) on
+   the kernel path and on the plain path with the same weights and the
+   same dropout draws;
+6. one JSON line describing each kernel, then the result line.
 
 It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
+import shutil
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
+REPO = Path(__file__).resolve().parent
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): bytes/s and ops/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -55,6 +72,20 @@ def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return float(np.median(times))
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 products and convolutions in full f32 for a parity check; the
+    defaults (TF32 convolutions) come back after it."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -223,20 +254,260 @@ def check_ln_gelu(rng, dev, rows: int = 97) -> dict:
     return rec
 
 
+def _rel_ok(got, want, rel: float) -> tuple[float, bool]:
+    """max |got - want| and whether it is <= rel * max(1, |want|) everywhere."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    err = float(d.max().item()) if d.numel() else 0.0
+    return err, bool((d <= rel * torch.clamp(want.float().abs(), min=1.0)).all().item())
+
+
+# train shape of the photometry attention: B = 256, 8 heads, L = 257 + CLS
+TRAIN_B, HEADS, TRAIN_L, HEAD_DIM, RATE = 256, 8, 258, 16, 0.40
+
+
+def _attn_inputs(rng, B, L, dtype, dev, H=HEADS, hd=HEAD_DIM):
+    import torch
+
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, H, L, hd)).astype(np.float32)).to(dev, dtype)
+                   for _ in range(4))
+    lengths = rng.integers(1, L + 1, B)
+    mask = torch.from_numpy(np.arange(L)[None, :] >= lengths[:, None]).to(dev)
+    return q, k, v, do, mask
+
+
+def check_flash_bits(rng, dev, B: int = 64) -> dict:
+    """K4b: forward and backward on random u8 bits, kernel vs plain twin.
+    f32: out <= 1e-5 abs, dq/dk/dv <= 1e-4 * max(1, |g|) (the backward sums
+    258 products in another order). bf16: <= 2e-2 * max(1, |plain|): both
+    versions round the same f32 intermediates (P, pd, ds) to bf16, and
+    values whose f32 results differ in the last bits may land one bf16
+    step (2^-8 relative) apart."""
+    import torch
+
+    from applecider_tpu_torch.ops import flash_attention as fa
+
+    thresh, _ = fa._drop_consts(RATE)
+    errs = {}
+    for L in (64, TRAIN_L):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, mask = _attn_inputs(rng, B, L, dtype, dev)
+            bits = torch.from_numpy(rng.integers(0, 256, (B, HEADS, L, L), dtype=np.uint8)).to(dev)
+            keep = bits >= thresh
+            out = fa.flash_forward(q, k, v, mask, RATE, bits=bits)
+            want = fa.flash_attention_reference(q, k, v, mask, keep, RATE)
+            grads = fa.flash_backward(q, k, v, mask, RATE, do, bits=bits)
+            wgrads = fa.flash_attention_backward_reference(q, k, v, mask, keep, RATE, do)
+            torch.cuda.synchronize()
+            f32 = dtype == torch.float32
+            e_out, ok_out = _tol_ok(out, want, dtype) if f32 else _rel_ok(out, want, 2e-2)
+            e_g, ok_g = 0.0, True
+            for g, w in zip(grads, wgrads):
+                e, ok = _rel_ok(g, w, 1e-4 if f32 else 2e-2)
+                e_g, ok_g = max(e_g, e), ok_g and ok
+            dname = "float32" if f32 else "bfloat16"
+            log(f"K4b flash bits B={B} H={HEADS} L={L} {dname}: fwd max|d|={e_out:.3g} "
+                f"bwd max|d|={e_g:.3g} ({'<= 1e-5 / 1e-4*max(1,|g|)' if f32 else '<= 2e-2*max(1,|plain|)'}) "
+                f"{'OK' if ok_out and ok_g else 'FAIL'}")
+            if not (ok_out and ok_g):
+                raise SystemExit(f"K4b disagrees with its plain version at L={L} {dname}")
+            errs[(L, dname)] = (e_out, e_g)
+            del q, k, v, do, bits, keep, out, want, grads, wgrads
+    return errs
+
+
+def check_flash_prng(rng, dev, B: int = 64) -> dict:
+    """K4a: the exported keep mask equals the Philox twin's draws >= thresh
+    exactly; the Philox forward and backward equal the bits kernels fed
+    keep * 255 exactly; the keep rate over the train shape; two seeds."""
+    import torch
+
+    from applecider_tpu_torch.ops import flash_attention as fa
+
+    thresh, _ = fa._drop_consts(RATE)
+    seed = 20260101
+    q, k, v, do, mask = _attn_inputs(rng, B, TRAIN_L, torch.bfloat16, dev)
+    out, keep = fa.flash_attention_export_mask(q, k, v, mask, seed, RATE)
+    want_keep = (fa.dropout_bits_reference(seed, B, HEADS, TRAIN_L, device=dev) >= thresh).to(torch.uint8)
+    mism = int((keep != want_keep).sum().item())
+    out_p = fa.flash_forward(q, k, v, mask, RATE, seed=seed)
+    out_b = fa.flash_forward(q, k, v, mask, RATE, bits=keep * 255)
+    g_p = fa.flash_backward(q, k, v, mask, RATE, do, seed=seed)
+    g_b = fa.flash_backward(q, k, v, mask, RATE, do, bits=keep * 255)
+    d_fwd = max(float((out_p.float() - out_b.float()).abs().max()),
+                float((out.float() - out_b.float()).abs().max()))
+    d_bwd = max(float((a.float() - b.float()).abs().max()) for a, b in zip(g_p, g_b))
+    log(f"K4a Philox keep mask vs dropout_bits_reference, B={B} L={TRAIN_L}: {mism} of "
+        f"{keep.numel()} differ (0 required); replay through the bits kernels: fwd max|d|={d_fwd} "
+        f"bwd max|d|={d_bwd} (0 required)")
+    if mism or d_fwd or d_bwd:
+        raise SystemExit("K4a disagrees with its Philox twin or with the bits kernels")
+    del q, k, v, do, mask, out, keep, want_keep, out_p, out_b, g_p, g_b
+    q, k, v, do, mask = _attn_inputs(rng, TRAIN_B, TRAIN_L, torch.bfloat16, dev)
+    _, keep = fa.flash_attention_export_mask(q, k, v, mask, seed, RATE)
+    frac = float(keep.float().mean())
+    _, keep2 = fa.flash_attention_export_mask(q, k, v, mask, seed + 1, RATE)
+    differ = float((keep != keep2).float().mean())
+    want = (256 - thresh) / 256
+    log(f"K4a keep fraction over {keep.numel()} draws: {frac:.6f} (want {want:.6f} within 1e-3); "
+        f"share of draws that differ between two seeds: {differ:.4f}")
+    if abs(frac - want) > 1e-3 or differ < 0.3:
+        raise SystemExit("K4a keep rate off, or two seeds drew the same mask")
+    return {"keep_fraction": frac, "seed_differ": differ}
+
+
+def time_flash(rng, dev, plain_B: int = 64) -> tuple[dict, dict]:
+    """K4 forward and backward at the train shape in bf16 (Philox): kernel,
+    plain twin (at ``plain_B``: its (B, H, L, L) f32 tensors and int64
+    Philox do not fit the card's time budget at B = 256), SDPA with dropout
+    0.4 as the library yardstick, and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from applecider_tpu_torch.ops import flash_attention as fa
+
+    B, H, L, hd = TRAIN_B, HEADS, TRAIN_L, HEAD_DIM
+    thresh, _ = fa._drop_consts(RATE)
+    q, k, v, do, mask = _attn_inputs(rng, B, L, torch.bfloat16, dev)
+    seed = 7
+    ms_f = time_ms(lambda: fa.flash_forward(q, k, v, mask, RATE, seed=seed))
+    ms_b = time_ms(lambda: fa.flash_backward(q, k, v, mask, RATE, do, seed=seed))
+    qp, kp, vp, dop, maskp = (t[:plain_B] for t in (q, k, v, do, mask))
+
+    def plain_fwd():
+        keep = fa.dropout_bits_reference(seed, plain_B, H, L, device=dev) >= thresh
+        return fa.flash_attention_reference(qp, kp, vp, maskp, keep, RATE)
+
+    def plain_bwd():
+        keep = fa.dropout_bits_reference(seed, plain_B, H, L, device=dev) >= thresh
+        return fa.flash_attention_backward_reference(qp, kp, vp, maskp, keep, RATE, dop)
+
+    ms_pf = time_ms(plain_fwd, iters=2, reps=3)
+    ms_pb = time_ms(plain_bwd, iters=2, reps=3)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    attend = ~mask[:, None, None, :]
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attend, dropout_p=RATE)
+    ms_lf = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attend,
+                                                           dropout_p=RATE))
+    ms_lb = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True))
+    io = B * H * L * hd * 2
+    fb, fby = bound_ms(4 * io + B * L, 4.0 * B * H * L * L * hd, "bfloat16")
+    bb, bby = bound_ms(7 * io + B * L, 10.0 * B * H * L * L * hd, "bfloat16")
+    shape = f"B={B} H={H} L={L} hd={hd} rate={RATE}"
+    log(f"K4a fwd {shape} bf16: kernel {ms_f:.4f} ms, plain {ms_pf:.4f} ms at B={plain_B}, "
+        f"sdpa(dropout) {ms_lf:.4f} ms, bound {fb:.5f} ms ({fby})")
+    log(f"K4a bwd {shape} bf16: kernel {ms_b:.4f} ms, plain {ms_pb:.4f} ms at B={plain_B}, "
+        f"sdpa(dropout) backward {ms_lb:.4f} ms, bound {bb:.5f} ms ({bby})")
+
+    # K4b: the same kernels reading injected bits, (B, H, L, L) u8 more to read
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bits = torch.randint(0, 256, (B, H, L, L), dtype=torch.uint8, device=dev, generator=gen)
+    keep = bits[:plain_B] >= thresh
+    ms_fbits = time_ms(lambda: fa.flash_forward(q, k, v, mask, RATE, bits=bits))
+    ms_bbits = time_ms(lambda: fa.flash_backward(q, k, v, mask, RATE, do, bits=bits))
+    ms_pfbits = time_ms(lambda: fa.flash_attention_reference(qp, kp, vp, maskp, keep, RATE),
+                        iters=2, reps=3)
+    ms_pbbits = time_ms(lambda: fa.flash_attention_backward_reference(qp, kp, vp, maskp, keep, RATE,
+                                                                      dop), iters=2, reps=3)
+    fbb, fbby = bound_ms(4 * io + B * L + bits.numel(), 4.0 * B * H * L * L * hd, "bfloat16")
+    bbb, bbby = bound_ms(7 * io + B * L + bits.numel(), 10.0 * B * H * L * L * hd, "bfloat16")
+    log(f"K4b fwd {shape} bf16, injected bits: kernel {ms_fbits:.4f} ms, plain {ms_pfbits:.4f} ms "
+        f"at B={plain_B}, bound {fbb:.5f} ms ({fbby}), library none")
+    log(f"K4b bwd {shape} bf16, injected bits: kernel {ms_bbits:.4f} ms, plain {ms_pbbits:.4f} ms "
+        f"at B={plain_B}, bound {bbb:.5f} ms ({bbby}), library none")
+    del bits, keep
+    common = dict(route="cuda", source="applecider_tpu_torch/csrc/flash_attention.cu", shape=shape,
+                  dtype="bfloat16", plain_B=plain_B)
+    fwd = dict(name="flash_attention_fwd", replaces="applecider_tpu/ops/flash_attention.py:162",
+               ms=ms_f, plain_ms=ms_pf, bound_ms=fb, bound_by=fby, library_ms=ms_lf, **common)
+    bwd = dict(name="flash_attention_bwd", replaces="applecider_tpu/ops/flash_attention.py:200",
+               ms=ms_b, plain_ms=ms_pb, bound_ms=bb, bound_by=bby, library_ms=ms_lb, **common)
+    return fwd, bwd
+
+
+def check_ln_gelu_bwd(rng, dev, rows: int = 64) -> dict:
+    """K3b vs ``ln_gelu_backward_reference`` at every SpectraNet stage with
+    ``rows`` spectra, f32: dx <= 1e-5 * max(1, |dx|); dscale and dbias
+    <= 1e-4 * max|.| (sums over up to 2e5 rows in another order). Timed at
+    the train shape's stage 0 (256 spectra)."""
+    import torch
+
+    from applecider_tpu_torch.ops import ln_gelu as lg
+
+    err_max = 0.0
+    for C, L in LN_GELU_SHAPES:
+        N = rows * L
+        x = torch.from_numpy((rng.normal(size=(N, C)) * 2.0 + 0.5).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32)).to(dev)
+        scale = torch.from_numpy(rng.uniform(0.8, 1.2, C).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.normal(0.0, 0.1, C).astype(np.float32)).to(dev)
+        dx, ds, db = lg.ln_gelu_backward(x, scale, bias, g)
+        wdx, wds, wdb = lg.ln_gelu_backward_reference(x, scale, bias, g)
+        e_dx, ok_dx = _rel_ok(dx, wdx, 1e-5)
+        e_ds = max(float((ds - wds).abs().max()) / max(float(wds.abs().max()), 1e-30),
+                   float((db - wdb).abs().max()) / max(float(wdb.abs().max()), 1e-30))
+        ok = ok_dx and e_ds <= 1e-4
+        log(f"K3b ln_gelu_bwd N={N} C={C} (L_stage={L}) float32: dx max|d|={e_dx:.3g} "
+            f"(<= 1e-5*max(1,|dx|)), dscale/dbias max|d|/max|.|={e_ds:.3g} (<= 1e-4) "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"K3b disagrees with its plain version at C={C}")
+        err_max = max(err_max, e_dx)
+        del x, g, dx, wdx
+    C, L = LN_GELU_SHAPES[0]
+    N = TRAIN_B * L
+    x = torch.from_numpy((rng.normal(size=(N, C)) * 2.0 + 0.5).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32)).to(dev)
+    scale = torch.from_numpy(rng.uniform(0.8, 1.2, C).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(0.0, 0.1, C).astype(np.float32)).to(dev)
+    ms_k = time_ms(lambda: lg.ln_gelu_backward(x, scale, bias, g))
+    ms_p = time_ms(lambda: lg.ln_gelu_backward_reference(x, scale, bias, g), iters=2, reps=3)
+    b_ms, b_by = bound_ms(3 * N * C * 4 + 4 * C * 4, 40.0 * N * C, "float32")
+    log(f"K3b ln_gelu_bwd N={N} C={C} float32 (train shape, stage 0): kernel {ms_k:.4f} ms "
+        f"plain {ms_p:.4f} ms bound {b_ms:.5f} ms ({b_by}) library none")
+    return dict(name="ln_gelu_bwd", route="cuda", source="applecider_tpu_torch/csrc/ln_gelu.cu",
+                replaces="applecider_tpu/ops/ln_gelu.py:89", shape=f"N={N} C={C}", dtype="float32",
+                max_abs_err=err_max, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 def check_kernels() -> list[dict]:
     import torch
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    return [check_merge_scan(rng, dev), check_attention(rng, dev), check_ln_gelu(rng, dev)]
+    records = [check_merge_scan(rng, dev), check_attention(rng, dev), check_ln_gelu(rng, dev)]
+    errs = check_flash_bits(rng, dev)
+    check_flash_prng(rng, dev)
+    fwd, bwd = time_flash(rng, dev)
+    fwd["max_abs_err"], bwd["max_abs_err"] = errs[(TRAIN_L, "bfloat16")]
+    records += [check_ln_gelu_bwd(rng, dev), fwd, bwd]
+    torch.cuda.empty_cache()
+    return records
 
 
 # ------------------------------------------------------------- phase 3
 def kernel_counters() -> dict:
-    from applecider_tpu_torch.ops import attention, ln_gelu, merge_scan
+    from applecider_tpu_torch.ops import attention, flash_attention, ln_gelu, merge_scan
 
     return {"merge_scan": merge_scan.KERNEL, "masked_attention": attention.KERNEL,
-            "ln_gelu_fwd": ln_gelu.KERNEL}
+            "ln_gelu_fwd": ln_gelu.KERNEL, "ln_gelu_bwd": ln_gelu.KERNEL_BWD,
+            "flash_attention_fwd": flash_attention.KERNEL_FWD,
+            "flash_attention_bwd": flash_attention.KERNEL_BWD}
+
+
+SERVING_KERNELS = ("merge_scan", "masked_attention", "ln_gelu_fwd")
+# launches per train step: 4 attention layers, 5 SpectraNet blocks
+TRAINING_KERNELS = {"flash_attention_fwd": 4, "flash_attention_bwd": 4, "ln_gelu_fwd": 5,
+                    "ln_gelu_bwd": 5}
+
+
+def zero_counters() -> dict:
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    return counters
 
 
 def serve(feeder, samples: list, num_classes: int) -> tuple[np.ndarray, int, float]:
@@ -280,9 +551,7 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
 
     _, _, warm_s = serve(feeder(), samples, model.num_classes)  # first launches, cuDNN plans
     log(f"warm-up pass: {warm_s:.3f} s")
-    counters = kernel_counters()
-    for k in counters.values():
-        k.launches = 0
+    counters = zero_counters()
     probs, n_batches, secs = serve(feeder(), samples, model.num_classes)
     launches = {name: k.launches for name, k in counters.items()}
 
@@ -297,18 +566,21 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
         f"max |sum-1| {float(np.abs(sums - 1).max()):.3g}")
     log(f"launches in that run: {launches} ({n_batches} batches)")
     if str(device).startswith("cuda"):
-        missing = [n for n, c in launches.items() if c == 0]
+        missing = [n for n in SERVING_KERNELS if launches[n] == 0]
         if missing:
             raise SystemExit(f"the serving path never launched: {missing}")
+        stray = [n for n in launches if n not in SERVING_KERNELS and launches[n]]
+        if stray:
+            raise SystemExit(f"the serving path launched training kernels: {stray}")
 
     # f32, TF32 off: kernel path vs plain path, same weights and alerts
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     model32 = build_fusion_model(cfg, device=device, dtype=torch.float32)
     model32.load_state_dict(model.state_dict())
     sub = samples[:n_parity]
-    got = FusedSpectraStream(model32, device=device)(sub, length_buckets=LENGTH_BUCKETS)
-    want = FusedSpectraStream(model32, device=device, kernels=False)(sub, length_buckets=LENGTH_BUCKETS)
+    with no_tf32():
+        got = FusedSpectraStream(model32, device=device)(sub, length_buckets=LENGTH_BUCKETS)
+        want = FusedSpectraStream(model32, device=device, kernels=False)(
+            sub, length_buckets=LENGTH_BUCKETS)
     err = float(np.abs(got - want).max())
     log(f"f32 (TF32 off) kernel path vs plain path, {n_parity} alerts: max|dprob| = {err:.3g} "
         f"(<= 1e-4 required)")
@@ -318,14 +590,245 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
             "parity_err": err}
 
 
+
+# ------------------------------------------------------------- phase 4
+def _timed_steps(trainer) -> list:
+    """Wrap ``trainer.train_step`` so that each step ends in a synchronise
+    and its wall time is recorded; returns the list the times go to."""
+    import torch
+
+    times = []
+    step = trainer.train_step
+
+    def timed(batch, kernels=True):
+        t0 = time.perf_counter()
+        out = step(batch, kernels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    trainer.train_step = timed
+    return times
+
+
+def check_training(card: str, workdir: Path, batch_size: int = 256, steps: int = 12) -> dict:
+    """Phase 4: ``Trainer.fit`` at the full widths in bf16 for one epoch."""
+    import torch
+
+    from applecider_tpu_torch.config import load_defaults
+    from applecider_tpu_torch.datasets.loader import DataLoader
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.fusion import to_tensor
+    from applecider_tpu_torch.testing import SyntheticFusionDataset
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    cfg = load_defaults()
+    model = build_fusion_model(cfg, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    before = [p.detach().clone() for p in model.parameters()]
+    data = SyntheticFusionDataset(batch_size * steps, seed=2)
+    loader = DataLoader(data, batch_size=batch_size, seed=0, drop_last=True, prefetch=2)
+    trainer = Trainer(model, cfg, workdir)
+    times = _timed_steps(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    out = trainer.fit(loader, epochs=1)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    rec = out["history"][0]
+    changed = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, model.parameters()))
+    del before
+    step_ms = float(np.median(times[1:])) * 1e3
+    log(f"training bf16, full widths, batch {batch_size}: {len(times)} steps in {wall:.2f} s "
+        f"(fit, with loading and two checkpoints); step times ms "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)}; median after the first {step_ms:.2f} ms, "
+        f"{batch_size / step_ms * 1e3:.1f} samples/s; peak memory {peak / 2**30:.2f} GiB [{card}]")
+    log(f"train_loss {rec['train_loss']:.5f} last_grad_norm {rec['last_grad_norm']:.4f}; "
+        f"{changed} of {len(list(model.parameters()))} parameter tensors changed")
+    log(f"launches in that run: {launches} ({len(times)} steps)")
+    if len(times) != steps or not np.isfinite(rec["train_loss"]) or changed == 0:
+        raise SystemExit("the training phase did not run its steps, or its loss is not finite, "
+                         "or no parameter changed")
+    wrong = {n: launches[n] for n, per in TRAINING_KERNELS.items() if launches[n] != per * steps}
+    stray = [n for n in launches if n not in TRAINING_KERNELS and launches[n]]
+    if wrong or stray:
+        raise SystemExit(f"training launches off the expected {TRAINING_KERNELS} per step: "
+                         f"{wrong}; serving kernels launched: {stray}")
+
+    # resume: a new Trainer on the same workdir continues at epoch 1
+    resumed = Trainer(model, cfg, workdir).fit(
+        DataLoader(SyntheticFusionDataset(batch_size, seed=3), batch_size=batch_size, seed=0,
+                   drop_last=True), epochs=2)
+    epochs_run = [r["epoch"] for r in resumed["history"]]
+    log(f"resumed from {workdir / 'checkpoints' / 'last.pt'}: epochs run {epochs_run}")
+    if epochs_run != [1] or resumed["history"][0]["steps"] != steps + 1:
+        raise SystemExit("fit did not resume from its checkpoint at epoch 1")
+
+    # the attention's route: autograd in eval mode reaches K4 (rate 0), no
+    # autograd reaches K2
+    batch = trainer.to_device(to_tensor(loader.dataset.collate(
+        [loader.dataset.sample(i) for i in range(8)])))
+    model.eval()
+    counters = zero_counters()
+    loss, _ = trainer.loss_and_accuracy(batch)
+    loss.backward()
+    with torch.no_grad():
+        trainer.loss_and_accuracy(batch)
+    routes = {name: k.launches for name, k in counters.items()}
+    log(f"eval forward+backward with autograd, then eval forward without: launches {routes}")
+    if routes["flash_attention_fwd"] != 4 or routes["flash_attention_bwd"] != 4 \
+            or routes["masked_attention"] != 4:
+        raise SystemExit("the attention did not route K4 under autograd and K2 without it")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "samples_per_s": batch_size / step_ms * 1e3,
+            "peak_gib": peak / 2**30, "step_times_ms": [t * 1e3 for t in times]}
+
+
+# ------------------------------------------------------------- phase 5
+def _record_ln_gelu(model) -> tuple[list, list]:
+    """Hooks on every SpectraNet LN+GELU: its input x and parameters, the
+    argmax of each max-pool window it feeds (the global max over length for
+    the last block), the gradient g of its output and the dx its backward
+    returned."""
+    import torch.nn.functional as F
+
+    enc = model.spectra_encoder
+    records, handles = [], []
+    for name in enc.block_names:
+        blk = enc.get_submodule(name)
+        rec = {}
+        records.append(rec)
+
+        def fwd(mod, inputs, y, rec=rec, blk=blk):
+            y = y.detach()
+            if blk.do_pool:
+                z = F.linear(y, blk.downsample.weight[:, :, 0]) + blk.downsample.bias
+                B, L, C = z.shape
+                rec["arg"] = z[:, : L // 4 * 4].reshape(B, L // 4, 4, C).argmax(dim=2)
+            else:
+                rec["arg"] = y.argmax(dim=1)
+            rec["x"] = inputs[0].detach()
+            rec["w"], rec["b"] = mod.weight.detach().clone(), mod.bias.detach().clone()
+
+        def bwd(mod, grad_in, grad_out, rec=rec):
+            rec["dx"], rec["g"] = grad_in[0].detach(), grad_out[0].detach()
+
+        handles += [blk.norm.register_forward_hook(fwd), blk.norm.register_full_backward_hook(bwd)]
+    return records, handles
+
+
+def check_training_parity(workdir: Path, batch_size: int = 32, lr: float = 1e-4) -> dict:
+    """One f32 step, TF32 off, dropout live: kernel path vs plain path, the
+    same weights and the same draws (FastDropout from equal device
+    generators, K4 through the Philox twin).
+
+    - |dloss| <= 1e-5.
+    - Outside SpectraNet every gradient is within tol = 1e-4 * max(1,
+      max|g|) of its parameter's (the kernels sum in another order than
+      the plain versions, and cuDNN's weight gradients are not
+      deterministic); after the Adam step, parameters are within 1e-6 where
+      |g| >= max(1e-5, tol) and within 2 * lr + 1e-7 elsewhere: Adam's first
+      step is lr * g / (|g| + 1e-8), so an entry whose two gradients differ
+      in sign, which only an entry below the tolerance can, moves by up to
+      2 * lr.
+    - In SpectraNet, K3's backward inside the step, on the x and g it was
+      given there, is within 1e-5 * max(1, |dx|) of the plain backward's dx.
+    - SpectraNet's max pools send each gradient to the argmax of its window,
+      and the two paths' activations differ by ~1e-6 after a few stages,
+      which moves the argmax of nearly tied windows and with it whole
+      gradient entries (the count is printed). Its parameters' gradients are
+      therefore held in norm, ||dg|| <= 5e-2 * ||g|| per tensor, and the
+      parameters within 2 * lr + 1e-7 after the step.
+    """
+    import torch
+
+    from applecider_tpu_torch.config import load_defaults
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.fusion import to_tensor
+    from applecider_tpu_torch.ops.ln_gelu import ln_gelu_backward_reference
+    from applecider_tpu_torch.testing import SyntheticFusionDataset
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    cfg = load_defaults()
+    cfg.set("train.compute_dtype", "float32")
+    cfg.set("model.AppleCider.lr", lr)
+    model_k = build_fusion_model(cfg, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    model_p = copy.deepcopy(model_k)
+    data = SyntheticFusionDataset(batch_size, seed=4)
+    host = to_tensor(data.collate([data.sample(i) for i in range(batch_size)]))
+    out = {}
+    for name, model, kernels in (("kernel", model_k, True), ("plain", model_p, False)):
+        trainer = Trainer(model, cfg, workdir / name, seed=11)
+        records, handles = _record_ln_gelu(model)
+        with no_tf32():
+            m = trainer.train_step(trainer.to_device(host), kernels=kernels)
+        for h in handles:
+            h.remove()
+        out[name] = (float(m["loss"]), float(m["grad_norm"]),
+                     {n: p.grad.detach() for n, p in model.named_parameters()}, records)
+    (lk, nk, gk, rec_k), (lp, np_, gp, rec_p) = out["kernel"], out["plain"]
+    flips = [int((a["arg"] != b["arg"]).sum()) for a, b in zip(rec_k, rec_p)]
+    ok = abs(lk - lp) <= 1e-5
+    k3b_err, k3b_ok = 0.0, True
+    for rec in rec_k:
+        want, _, _ = ln_gelu_backward_reference(rec["x"], rec["w"], rec["b"], rec["g"])
+        e, o = _rel_ok(rec["dx"], want, 1e-5)
+        k3b_err, k3b_ok = max(k3b_err, e), k3b_ok and o
+    ok = ok and k3b_ok
+    g_err, p_err, s_err, worst, s_worst = 0.0, 0.0, 0.0, "", ""
+    bound = 2 * lr + 1e-7
+    for (n, pk), pp in zip(model_k.named_parameters(), model_p.parameters()):
+        dg = gk[n] - gp[n]
+        dp = (pk.detach() - pp.detach()).abs()
+        ok = ok and bool((dp <= bound).all())
+        if n.startswith("spectra_encoder."):
+            rel = float(dg.norm()) / max(float(gp[n].norm()), 1e-12)
+            if rel > s_err:
+                s_err, s_worst = rel, n
+            ok = ok and rel <= 5e-2
+            continue
+        d = dg.abs().max().item()
+        lim = 1e-4 * max(1.0, gp[n].abs().max().item())
+        if d / lim > g_err:
+            g_err, worst = d / lim, n
+        big = gp[n].abs() >= max(1e-5, lim)
+        p_err = max(p_err, float(dp[big].max()) if big.any() else 0.0)
+        ok = ok and d <= lim and bool((dp[big] <= 1e-6).all())
+    log(f"training parity f32 (TF32 off), batch {batch_size}, dropout live: loss {lk:.7f} vs "
+        f"{lp:.7f} (|d| {abs(lk - lp):.3g} <= 1e-5); grad norm {nk:.6f} vs {np_:.6f}")
+    log(f"  outside SpectraNet: worst gradient at {g_err:.3g} of its bound ({worst}); post-step "
+        f"params max|d| where |g| >= max(1e-5, tol) {p_err:.3g} (<= 1e-6)")
+    log(f"  K3b in the step vs the plain backward on the same x and g: dx max|d| {k3b_err:.3g} "
+        f"(<= 1e-5*max(1,|dx|))")
+    log(f"  SpectraNet: max-pool windows whose argmax differs between the two paths, per block "
+        f"(the last the global max over length, of {rec_k[-1]['arg'].numel()}): {flips}; worst "
+        f"||dg||/||g|| {s_err:.3g} (<= 5e-2, {s_worst}); every param within 2*lr + 1e-7 "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the f32 training step disagrees between the kernel and plain paths")
+    return {"loss_err": abs(lk - lp), "grad_err_of_bound": g_err, "param_err": p_err,
+            "k3b_in_step_err": k3b_err, "spectra_rel_grad_err": s_err, "pool_flips": flips}
+
+
 def main() -> int:
     import torch
 
     card = device_and_build()
     records = check_kernels()
     serving = check_serving(card=card)
+    workdir = REPO / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        training = check_training(card, workdir)
+        check_training_parity(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     for r in records:
-        r["launches"] = serving["launches"][r["name"]]
+        by_path = {"serving": serving["launches"][r["name"]], "training": training["launches"][r["name"]]}
+        r["launches"] = by_path["training" if r["name"] in TRAINING_KERNELS else "serving"]
+        r["launches_by_path"] = by_path
     log(json.dumps({"kernels": records}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

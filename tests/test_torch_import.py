@@ -19,6 +19,9 @@ MODULES = [
     "applecider_tpu_torch.ops.merge_scan",
     "applecider_tpu_torch.ops.attention",
     "applecider_tpu_torch.ops.ln_gelu",
+    "applecider_tpu_torch.ops.flash_attention",
+    "applecider_tpu_torch.ops.dropout",
+    "applecider_tpu_torch.ops.losses",
     "applecider_tpu_torch.ops.conv1d",
     "applecider_tpu_torch.ops.moe",
     "applecider_tpu_torch.models",
@@ -33,9 +36,15 @@ MODULES = [
     "applecider_tpu_torch.infer.stream",
     "applecider_tpu_torch.utils",
     "applecider_tpu_torch.utils.weights",
+    "applecider_tpu_torch.datasets",
+    "applecider_tpu_torch.datasets.loader",
+    "applecider_tpu_torch.train",
+    "applecider_tpu_torch.train.optim",
+    "applecider_tpu_torch.train.trainer",
     "applecider_tpu_torch.testing",
     "applecider_tpu_torch.tools",
     "applecider_tpu_torch.tools.profile_serving",
+    "applecider_tpu_torch.tools.profile_training",
 ]
 
 
@@ -71,8 +80,9 @@ def test_port_imports_with_jax_blocked():
 
 def test_port_config_copies_the_published_widths():
     """The port's own default_config.toml holds the JAX package's values for
-    every key it copies: from the JAX config file, or, for the AstroMiNN
-    keys that file leaves out, from the flax module's defaults."""
+    every key it copies: from the JAX config file, or, for the keys that
+    file leaves out, from the code's defaults (the flax AstroMiNN module's;
+    ``AppleCiderTask.loss_fn``'s criterion "ce" and focal_gamma 2.0)."""
     import tomllib
 
     from applecider_tpu.models.astrominn import AstroMiNNModule
@@ -80,14 +90,19 @@ def test_port_config_copies_the_published_widths():
 
     with open(REPO / "applecider_tpu" / "default_config.toml", "rb") as f:
         jax_cfg = tomllib.load(f)
+    loss_fn_defaults = {"criterion": "ce", "focal_gamma": 2.0}
     port = load_defaults()
     for section in ("BaselineCLS", "SpectraNet", "AstroMiNN", "AppleCider"):
         for key, value in port["model"][section].items():
             want = jax_cfg["model"][section].get(key)
             if want is None and section == "AstroMiNN":
                 want = getattr(AstroMiNNModule, key)
+            if want is None and section == "AppleCider":
+                want = loss_fn_defaults[key]
             assert value == (list(want) if isinstance(want, tuple) else want), (section, key)
-    assert port["train"]["compute_dtype"] == jax_cfg["train"]["compute_dtype"]
+    for section in ("train", "data_loader", "checkpoint"):
+        for key, value in port[section].items():
+            assert value == jax_cfg[section][key], (section, key)
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
@@ -98,6 +113,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         AlertStreamPipeline, FusedSpectraStream, LengthBinnedFeeder,
     )
     from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_defaults()
@@ -120,6 +136,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LengthBinnedFeeder(stream)
     LengthBinnedFeeder(stream, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(model, cfg, REPO / "build" / "unused")
 
 
 def test_kernel_wrappers_take_cpu_or_cuda_only():
@@ -138,3 +156,13 @@ def test_kernel_wrappers_take_cpu_or_cuda_only():
         attention.masked_attention(q.to("meta"), q.to("meta"), q.to("meta"), None)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ln_gelu.ln_gelu(q.to("meta"), torch.ones(8, device="meta"), torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ln_gelu.ln_gelu_backward(q.to("meta"), torch.ones(8, device="meta"),
+                                 torch.zeros(8, device="meta"), q.to("meta"))
+    from applecider_tpu_torch.ops import flash_attention
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"), None, 1, 0.4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention.flash_backward(q.to("meta"), q.to("meta"), q.to("meta"), None, 0.4,
+                                       q.to("meta"), seed=1)
