@@ -57,6 +57,26 @@
 //   and ds_ij recomputed from the stored row statistics, dk_j and dv_j
 //   accumulated in registers and reduced by shuffles. No atomics: every
 //   output element is written once, in a fixed summation order.
+//
+// K4x, the forward ablation ladder (replaces scripts/tpu_flash_microab.py
+// _fwd_kernel and _fwd_kernel_batched, Pallas, TPU): the same forward with
+// stages taken out, to split its time between them on the card. Its rungs
+// are instantiations of flash_fwd_kernel, so the ladder times the kernel
+// the training step runs: `full` is kPhilox and `no_prng` kKeepAll, and
+// two forward-only modes are added as compile-time branches that leave
+// those instantiations as they were:
+//   kDrawOnly (`prng_only_no_apply`): kKeepAll's output, and the row's
+//   Philox words drawn but not applied; each lane XORs the words it draws
+//   and writes the XOR to keep_out only if keep_out is not null, which the
+//   wrapper never passes, so the draw stays in the code and out of the
+//   result.
+//   kMatmulOnly (`matmul_only`): no max, exp or denominator; the raw
+//   masked score (-1e9 included) is rounded to the I/O dtype, multiplied
+//   into V and written undivided (outputs of order 1e9 are the contract).
+// `batched{N}` is flash_fwd_pairs_kernel: kKeepAll for N heads of one
+// batch row in one block, K and V kept in the I/O dtype so that eight
+// heads fit (bf16, L = 258: 149 KB). Every rung has the forward's bound
+// (bytes: q, k, v and out once).
 #include "common.cuh"
 
 namespace {
@@ -64,7 +84,7 @@ namespace {
 constexpr int kWarps = 8;
 constexpr float kNeg = -1e9f;
 
-enum KeepMode : int { kKeepAll = 0, kPhilox = 1, kBits = 2 };
+enum KeepMode : int { kKeepAll = 0, kPhilox = 1, kBits = 2, kDrawOnly = 3, kMatmulOnly = 4 };
 
 // Philox4x32-10 (Salmon et al., SC'11) keyed on (seed, 0) at counter
 // (c mod 2^32, c / 2^32, 0, 0).
@@ -114,6 +134,18 @@ __device__ __forceinline__ void row_keep(uint8_t* keep, const uint8_t* __restric
   }
 }
 
+// kDrawOnly: the Philox counters row_keep<kPhilox> draws for the row
+// starting at element e0, XORed into one word per lane.
+__device__ __forceinline__ uint32_t row_draw(uint64_t e0, int L, uint32_t seed, int lane) {
+  uint32_t x = 0u;
+  const uint64_t c0 = e0 >> 2, c1 = (e0 + L - 1) >> 2;
+  for (uint64_t c = c0 + lane; c <= c1; c += 32) {
+    const uint4 r = philox(c, seed);
+    x ^= r.x ^ r.y ^ r.z ^ r.w;
+  }
+  return x;
+}
+
 template <typename T, int HD, int MODE>
 __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -146,6 +178,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
   uint8_t* keep = kps + warp * L;
   constexpr int kGroups = 32 / HD;
   const int d = lane % HD, g = lane / HD;
+  uint32_t drawn = 0u;  // kDrawOnly: XOR of the words this lane drew
   for (int i = warp; i < L; i += kWarps) {
     float qv[HD];
 #pragma unroll
@@ -162,27 +195,36 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
       p[j] = s;
       m = fmaxf(m, s);
     }
-    m = ac::warp_max(m);
 
     float denom = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float pe = expf(p[j] - m);
-      denom += pe;
-      p[j] = pe;
-    }
-    denom = ac::warp_sum(denom);
-
-    const uint64_t e0 = (static_cast<uint64_t>(bh) * L + i) * L;
-    row_keep<MODE>(keep, bits, e0, L, thresh, seed, lane);
-    __syncwarp();
-    for (int j = lane; j < L; j += 32) {
-      const bool kp = keep[j] != 0;
-      if (MODE == kKeepAll) {
-        p[j] = ac::round_to<T>(p[j]);
-      } else {
-        p[j] = kp ? ac::round_to<T>(p[j] * drop_scale) : 0.f;
+    if constexpr (MODE == kMatmulOnly) {
+      for (int j = lane; j < L; j += 32) p[j] = ac::round_to<T>(p[j]);
+    } else {
+      m = ac::warp_max(m);
+      for (int j = lane; j < L; j += 32) {
+        const float pe = expf(p[j] - m);
+        denom += pe;
+        p[j] = pe;
       }
-      if (keep_out != nullptr) keep_out[e0 + j] = kp ? 1 : 0;
+      denom = ac::warp_sum(denom);
+
+      const uint64_t e0 = (static_cast<uint64_t>(bh) * L + i) * L;
+      if constexpr (MODE == kDrawOnly) {
+        drawn ^= row_draw(e0, L, seed, lane);
+        for (int j = lane; j < L; j += 32) p[j] = ac::round_to<T>(p[j]);
+      } else {
+        row_keep<MODE>(keep, bits, e0, L, thresh, seed, lane);
+        __syncwarp();
+        for (int j = lane; j < L; j += 32) {
+          const bool kp = keep[j] != 0;
+          if (MODE == kKeepAll) {
+            p[j] = ac::round_to<T>(p[j]);
+          } else {
+            p[j] = kp ? ac::round_to<T>(p[j] * drop_scale) : 0.f;
+          }
+          if (keep_out != nullptr) keep_out[e0 + j] = kp ? 1 : 0;
+        }
+      }
     }
     __syncwarp();
 
@@ -190,8 +232,86 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
     for (int j = g; j < L; j += kGroups) acc = fmaf(p[j], vs[j * kStride + d], acc);
 #pragma unroll
     for (int off = HD; off < 32; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (g == 0) out[base + static_cast<size_t>(i) * HD + d] = ac::from_f32<T>(acc / denom);
+    if constexpr (MODE == kMatmulOnly) {
+      if (g == 0) out[base + static_cast<size_t>(i) * HD + d] = ac::from_f32<T>(acc);
+    } else {
+      if (g == 0) out[base + static_cast<size_t>(i) * HD + d] = ac::from_f32<T>(acc / denom);
+    }
     __syncwarp();  // the next row overwrites p and keep
+  }
+  if constexpr (MODE == kDrawOnly) {
+    if (keep_out != nullptr) reinterpret_cast<uint32_t*>(keep_out)[blockIdx.x * blockDim.x + threadIdx.x] = drawn;
+  }
+}
+
+// K4x `batched{N}`: kKeepAll for pair_block = N heads of one batch row per
+// block (grid B * H / N). The mask row is loaded once; K and V of the N
+// heads stay in the I/O dtype, rows padded to an odd number of 32-bit words
+// (no bank conflicts); warps go over the N * L (head, query row) pairs with
+// flash_fwd_kernel's per-row arithmetic, so the results equal kKeepAll's.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kWarps * 32) flash_fwd_pairs_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int L, int pair_block, float scale) {
+  static_assert(HD <= 32 && 32 % HD == 0, "HD must divide 32");
+  extern __shared__ float smem[];
+  constexpr int kStride = HD + 4 / static_cast<int>(sizeof(T));
+  float* neg = smem;
+  float* ps = neg + L;
+  T* ks = reinterpret_cast<T*>(ps + kWarps * L);
+  T* vs = ks + static_cast<size_t>(pair_block) * L * kStride;
+
+  const int groups = H / pair_block;
+  const int b = blockIdx.x / groups;
+  // heads h0 .. h0 + pair_block - 1 of batch row b are contiguous
+  const size_t base = (static_cast<size_t>(b) * H + (blockIdx.x % groups) * pair_block) * L * HD;
+  for (int idx = threadIdx.x; idx < pair_block * L * HD; idx += blockDim.x) {
+    const int r = idx / HD, d = idx % HD;
+    ks[r * kStride + d] = k[base + idx];
+    vs[r * kStride + d] = v[base + idx];
+  }
+  for (int j = threadIdx.x; j < L; j += blockDim.x)
+    neg[j] = (mask != nullptr && mask[static_cast<size_t>(b) * L + j]) ? kNeg : 0.f;
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* p = ps + warp * L;
+  constexpr int kGroups = 32 / HD;
+  const int d = lane % HD, g = lane / HD;
+  for (int pr = warp; pr < pair_block * L; pr += kWarps) {
+    const T* kh = ks + static_cast<size_t>(pr / L) * L * kStride;
+    const T* vh = vs + static_cast<size_t>(pr / L) * L * kStride;
+    float qv[HD];
+#pragma unroll
+    for (int e = 0; e < HD; ++e)
+      qv[e] = ac::round_to<T>(ac::to_f32(q[base + static_cast<size_t>(pr) * HD + e]) * scale);
+
+    float m = -INFINITY;
+    for (int j = lane; j < L; j += 32) {
+      const T* kr = kh + j * kStride;
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < HD; ++e) s = fmaf(qv[e], ac::to_f32(kr[e]), s);
+      s += neg[j];
+      p[j] = s;
+      m = fmaxf(m, s);
+    }
+    m = ac::warp_max(m);
+    float denom = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float pe = expf(p[j] - m);
+      denom += pe;
+      p[j] = ac::round_to<T>(pe);
+    }
+    denom = ac::warp_sum(denom);
+    __syncwarp();
+
+    float acc = 0.f;
+    for (int j = g; j < L; j += kGroups) acc = fmaf(p[j], ac::to_f32(vh[j * kStride + d]), acc);
+#pragma unroll
+    for (int off = HD; off < 32; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (g == 0) out[base + static_cast<size_t>(pr) * HD + d] = ac::from_f32<T>(acc / denom);
+    __syncwarp();  // the next pair overwrites p
   }
 }
 
@@ -365,6 +485,11 @@ size_t fwd_smem(int L, int hd) {
   return sizeof(float) * (static_cast<size_t>(2) * L * (hd + 1) + L + kWarps * L) + kWarps * L;
 }
 
+size_t pairs_smem(int L, int hd, int pair_block, size_t esize) {
+  const size_t stride = hd + 4 / esize;
+  return sizeof(float) * (static_cast<size_t>(L) + kWarps * L) + 2 * esize * pair_block * L * stride;
+}
+
 size_t bwd_smem(int L, int hd) {
   const size_t W = (L + 31) / 32;
   return sizeof(float) * (static_cast<size_t>(4) * L * (hd + 1) + 4 * L + 2 * kWarps * L) +
@@ -417,6 +542,42 @@ int launch_bwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int HD>
+int launch_pairs(const Args& a, int pair_block) {
+  const size_t smem = pairs_smem(a.L, HD, pair_block, sizeof(T));
+  if (a.H % pair_block != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_pairs_kernel<T, HD>;
+  if (int err = prepare(kernel, smem)) return err;
+  kernel<<<a.BH / pair_block, kWarps * 32, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const uint8_t*>(a.mask), static_cast<T*>(a.out), a.H, a.L, pair_block, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4x: one rung of the ladder (see the header)
+template <typename T, int HD>
+int launch_ablate(const Args& a, int mode, int pair_block) {
+  if (pair_block > 0) return mode == kKeepAll ? launch_pairs<T, HD>(a, pair_block)
+                                              : static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kKeepAll: return launch_fwd<T, HD, kKeepAll>(a);
+    case kPhilox: return launch_fwd<T, HD, kPhilox>(a);
+    case kDrawOnly: return launch_fwd<T, HD, kDrawOnly>(a);
+    case kMatmulOnly: return launch_fwd<T, HD, kMatmulOnly>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int dispatch_ablate_hd(const Args& a, int hd, int mode, int pair_block) {
+  switch (hd) {
+    case 8: return launch_ablate<T, 8>(a, mode, pair_block);
+    case 16: return launch_ablate<T, 16>(a, mode, pair_block);
+    case 32: return launch_ablate<T, 32>(a, mode, pair_block);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <bool kBwd, typename T, int HD>
 int dispatch_mode(const Args& a) {
   const int mode = a.thresh == 0 ? kKeepAll : (a.bits != nullptr ? kBits : kPhilox);
@@ -463,4 +624,18 @@ extern "C" int ac_flash_bwd(const void* q, const void* k, const void* v, const v
   Args a{q, k, v, mask, bits, dout, nullptr, nullptr, dq, dk, dv,
          B * H, H, L, scale, thresh, drop_scale, seed, static_cast<cudaStream_t>(stream)};
   return dispatch<true>(a, hd, dtype);
+}
+
+// K4x: mode is a KeepMode other than kBits; pair_block > 0 (kKeepAll only)
+// runs N = pair_block heads a block. Launches never add to ac_flash_fwd's.
+extern "C" int ac_flash_fwd_ablate(const void* q, const void* k, const void* v, const void* mask,
+                                   void* out, int B, int H, int L, int hd, float scale, int thresh,
+                                   float drop_scale, uint32_t seed, int dtype, int mode,
+                                   int pair_block, void* stream) {
+  Args a{q, k, v, mask, nullptr, nullptr, out, nullptr, nullptr, nullptr, nullptr,
+         B * H, H, L, scale, thresh, drop_scale, seed, static_cast<cudaStream_t>(stream)};
+  if (a.BH == 0 || a.L == 0) return static_cast<int>(cudaGetLastError());
+  if (dtype == AC_F32) return dispatch_ablate_hd<float>(a, hd, mode, pair_block);
+  if (dtype == AC_BF16) return dispatch_ablate_hd<__nv_bfloat16>(a, hd, mode, pair_block);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

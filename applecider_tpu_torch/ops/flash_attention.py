@@ -106,12 +106,17 @@ def _neg(key_padding_mask: torch.Tensor | None) -> torch.Tensor | float:
     return torch.where(key_padding_mask, _NEG, 0.0).to(torch.float32)[:, None, None, :]
 
 
+def _scores(q, k, key_padding_mask):
+    """f32 masked scores of the kernels: q scaled in f32 and rounded to the
+    I/O dtype, f32 products, -1e9 at padded keys."""
+    qs = (q.float() * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype).float()
+    return torch.matmul(qs, k.float().transpose(-1, -2)) + _neg(key_padding_mask)
+
+
 def _probs(q, k, key_padding_mask):
-    """f32 (p_un, denom) of the kernels: q scaled in f32 and rounded to the
-    I/O dtype, f32 products and softmax statistics."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    qs = (q.float() * scale).to(q.dtype).float()
-    scores = torch.matmul(qs, k.float().transpose(-1, -2)) + _neg(key_padding_mask)
+    """f32 (p_un, denom) of the kernels: the softmax statistics of
+    ``_scores``."""
+    scores = _scores(q, k, key_padding_mask)
     p_un = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     return p_un, p_un.sum(dim=-1, keepdim=True)
 

@@ -15,7 +15,13 @@ Phases, in order; any failure exits non-zero before the result line:
    the serving path runs them; K4 forward and backward on injected bits in
    f32 and bf16; K4's Philox bits against their twin bit for bit, the
    Philox kernels against the bits kernels fed the same keep mask, and the
-   keep rate over the train shape; K3b at every SpectraNet stage;
+   keep rate over the train shape; K3b at every SpectraNet stage; K4x, the
+   forward ablation ladder: every rung against its plain version in f32
+   and bf16, ``full`` equal to K4a's forward and ``prng_only_no_apply`` to
+   ``no_prng`` bit for bit, and ``prng_only_no_apply``'s Philox draw
+   present in its SASS; then the ladder's own path,
+   ``tools/flash_microab.ladder`` at the train shape, with each rung's
+   launch count read from that run alone;
 3. the serving path at the full published AppleCider widths: 2048
    synthetic alerts through ``LengthBinnedFeeder(FusedSpectraStream)`` in
    bf16, with every kernel's launch count read from that run alone; then
@@ -426,6 +432,139 @@ def time_flash(rng, dev, plain_B: int = 64) -> tuple[dict, dict]:
     return fwd, bwd
 
 
+def check_flash_ladder(rng, dev, B: int = 64) -> dict:
+    """K4x: every rung of the forward ablation ladder against its plain
+    version at L = 64 and 258, in f32 and bf16. f32 <= 1e-5 abs and bf16
+    <= 2e-2 * max(1, |plain|), as K4; ``matmul_only`` sums terms of order
+    1e9 that cancel, so its f32 rounding error scales with M = sum_j
+    |p_j||v_j| (``matmul_only_magnitude``), not with |out|: f32 <= 1e-6 *
+    max(1, M), bf16 <= 2e-2 * max(1, |plain|) + 1e-6 * M. ``full`` must
+    equal ``flash_forward(seed=)``'s kernel and ``prng_only_no_apply`` the
+    ``no_prng`` kernel at max |d| = 0. f32 ``batched8`` at L = 258 does not
+    fit a block's shared memory and must be refused. Returns max |d| per
+    rung at L = 258 in bf16."""
+    import torch
+
+    from applecider_tpu_torch.ops import flash_attention as fa
+    from applecider_tpu_torch.ops import flash_microab as fm
+
+    seed = 20260102
+    errs = {}
+    for L in (64, TRAIN_L):
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            dname = "float32" if f32 else "bfloat16"
+            q, k, v, _, mask = _attn_inputs(rng, B, L, dtype, dev)
+            outs = {}
+            for mode in fm.MODES:
+                n = fm.pair_block(mode)
+                if n and fm.pairs_smem(L, HEAD_DIM, n, dtype) > fm.MAX_SMEM:
+                    try:
+                        fm.flash_forward_ablation(q, k, v, mask, mode, RATE, seed)
+                    except ValueError as err:
+                        log(f"K4x {mode} B={B} L={L} {dname}: refused, as it must be ({err})")
+                        continue
+                    raise SystemExit(f"K4x {mode} at L={L} {dname} ran past the shared-memory limit")
+                got = outs[mode] = fm.flash_forward_ablation(q, k, v, mask, mode, RATE, seed)
+                want = fm.flash_forward_ablation_reference(q, k, v, mask, mode, RATE, seed)
+                if mode == "matmul_only":
+                    mag = fm.matmul_only_magnitude(q, k, v, mask)
+                    d = (got.float() - want.float()).abs()
+                    lim = 1e-6 * (mag.clamp(min=1.0) if f32 else mag)
+                    if not f32:
+                        lim = lim + 2e-2 * want.float().abs().clamp(min=1.0)
+                    err, ok = float(d.max()), bool((d <= lim).all())
+                    rule = "<= 1e-6*max(1,M)" if f32 else "<= 2e-2*max(1,|plain|) + 1e-6*M"
+                else:
+                    err, ok = _tol_ok(got, want, dtype) if f32 else _rel_ok(got, want, 2e-2)
+                    rule = "<= 1e-5" if f32 else "<= 2e-2*max(1,|plain|)"
+                log(f"K4x {mode} B={B} H={HEADS} L={L} {dname}: max|d|={err:.3g} ({rule}) "
+                    f"{'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"K4x {mode} disagrees with its plain version at L={L} {dname}")
+                if L == TRAIN_L and not f32:
+                    errs[mode] = err
+            d_full = float((outs["full"].float() - fa.flash_forward(q, k, v, mask, RATE, seed=seed)
+                            .float()).abs().max())
+            d_draw = float((outs["prng_only_no_apply"].float() - outs["no_prng"].float()).abs().max())
+            d_pairs = {m: float((outs[m].float() - outs["no_prng"].float()).abs().max())
+                       for m in outs if m.startswith("batched")}
+            log(f"K4x L={L} {dname}: full vs flash_forward(seed) kernel max|d|={d_full}, "
+                f"prng_only_no_apply vs no_prng kernel max|d|={d_draw} (0 required); "
+                f"batched vs no_prng kernel max|d| {d_pairs}")
+            if d_full or d_draw:
+                raise SystemExit("K4x full is not K4a's forward, or the draw changed the output")
+            del q, k, v, mask, outs
+    return errs
+
+
+def check_draw_in_sass() -> None:
+    """K4x's ``prng_only_no_apply`` must keep the Philox draw that its output
+    never uses. In the SASS of the bf16, hd = 16 forward instantiations
+    (``cuobjdump -sass``), the lines that use a Philox multiplier
+    (0xD2511F53, 0xCD9E8D57, which SASS may print as the signed immediates
+    -0x2daee0ad, -0x326172a9) must be there in kDrawOnly and kPhilox, and
+    absent from kKeepAll, which draws nothing."""
+    import os
+    import re
+    import subprocess
+
+    from applecider_tpu_torch.ops import kernel
+
+    cuobjdump = os.path.join(os.path.dirname(kernel._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(kernel._library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    multipliers = ("0xd2511f53", "0xcd9e8d57", "-0x2daee0ad", "-0x326172a9")
+    lines = {}
+    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        m = re.search(r"flash_fwd_kernelI13__nv_bfloat16Li16ELi(\d)E", name)
+        if m:
+            lines[int(m.group(1))] = sum(any(c in ln for c in multipliers)
+                                         for ln in body.lower().splitlines())
+    keep_all, philox, draw = lines.get(0), lines.get(1), lines.get(3)
+    log(f"K4x SASS lines using a Philox multiplier, bf16 hd=16: kKeepAll {keep_all}, kPhilox "
+        f"{philox}, kDrawOnly {draw} (kDrawOnly and kPhilox > 0, kKeepAll 0 required)")
+    if not (draw and philox and keep_all == 0):
+        raise SystemExit("K4x prng_only_no_apply lost its Philox draw, or the SASS was not found")
+
+
+def time_flash_ladder(dev, plain_B: int = 64) -> tuple[list, dict]:
+    """The ladder's own path: ``tools/flash_microab.ladder`` at the train
+    shape, every rung's launches read from that run alone; then each rung's
+    plain version at ``plain_B`` (outside the counted run)."""
+    from applecider_tpu_torch.ops import flash_microab as fm
+    from applecider_tpu_torch.tools import flash_microab as tool
+
+    counters = zero_counters()
+    report = tool.ladder(dev)
+    launches = {name: k.launches for name, k in counters.items()}
+    missing = [m for m in fm.MODES if launches[LADDER_PREFIX + m] == 0]
+    stray = [n for n in launches if not n.startswith(LADDER_PREFIX) and launches[n]]
+    if missing or stray:
+        raise SystemExit(f"the ladder never launched {missing}, or launched other kernels {stray}")
+    q, k, v, mask = (t[:plain_B] for t in tool.make_inputs(device=dev))
+    shape = "B={B} H={H} L={L} hd={hd} rate=".format(**report["shape"]) + str(report["rate"])
+    records = []
+    for mode in fm.MODES:
+        r = report["rungs"][mode]
+        plain = time_ms(lambda: fm.flash_forward_ablation_reference(q, k, v, mask, mode, tool.RATE,
+                                                                    tool.SEED), iters=2, reps=3)
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"K4x ladder {mode} {shape} bf16: kernel {r['ms']:.4f} ms, plain {plain:.4f} ms at "
+            f"B={plain_B}, sdpa {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+            f"launches {launches[LADDER_PREFIX + mode]}")
+        line = 79 if mode.startswith("batched") else 41
+        records.append(dict(name=LADDER_PREFIX + mode, route="cuda",
+                            source="applecider_tpu_torch/csrc/flash_attention.cu",
+                            replaces=f"scripts/tpu_flash_microab.py:{line}", shape=shape,
+                            dtype="bfloat16", plain_B=plain_B, ms=r["ms"], plain_ms=plain,
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
+    for name, st in report["stages"].items():
+        log(f"K4x split of full: {name} {st['ms']:+.4f} ms ({st['share_of_full']:+.1%})")
+    return records, launches
+
+
 def check_ln_gelu_bwd(rng, dev, rows: int = 64) -> dict:
     """K3b vs ``ln_gelu_backward_reference`` at every SpectraNet stage with
     ``rows`` spectra, f32: dx <= 1e-5 * max(1, |dx|); dscale and dbias
@@ -472,7 +611,8 @@ def check_ln_gelu_bwd(rng, dev, rows: int = 64) -> dict:
                 library_ms=None)
 
 
-def check_kernels() -> list[dict]:
+def check_kernels() -> tuple[list[dict], dict]:
+    """Phase 2: the kernel records, and the ladder's launch counts."""
     import torch
 
     dev = torch.device("cuda")
@@ -483,24 +623,31 @@ def check_kernels() -> list[dict]:
     fwd, bwd = time_flash(rng, dev)
     fwd["max_abs_err"], bwd["max_abs_err"] = errs[(TRAIN_L, "bfloat16")]
     records += [check_ln_gelu_bwd(rng, dev), fwd, bwd]
+    ladder_errs = check_flash_ladder(rng, dev)
+    check_draw_in_sass()
+    ladder, ladder_launches = time_flash_ladder(dev)
+    for r in ladder:
+        r["max_abs_err"] = ladder_errs[r["name"].removeprefix(LADDER_PREFIX)]
     torch.cuda.empty_cache()
-    return records
+    return records + ladder, ladder_launches
 
 
 # ------------------------------------------------------------- phase 3
 def kernel_counters() -> dict:
-    from applecider_tpu_torch.ops import attention, flash_attention, ln_gelu, merge_scan
+    from applecider_tpu_torch.ops import attention, flash_attention, flash_microab, ln_gelu, merge_scan
 
     return {"merge_scan": merge_scan.KERNEL, "masked_attention": attention.KERNEL,
             "ln_gelu_fwd": ln_gelu.KERNEL, "ln_gelu_bwd": ln_gelu.KERNEL_BWD,
             "flash_attention_fwd": flash_attention.KERNEL_FWD,
-            "flash_attention_bwd": flash_attention.KERNEL_BWD}
+            "flash_attention_bwd": flash_attention.KERNEL_BWD,
+            **{LADDER_PREFIX + m: k for m, k in flash_microab.KERNELS.items()}}
 
 
 SERVING_KERNELS = ("merge_scan", "masked_attention", "ln_gelu_fwd")
 # launches per train step: 4 attention layers, 5 SpectraNet blocks
 TRAINING_KERNELS = {"flash_attention_fwd": 4, "flash_attention_bwd": 4, "ln_gelu_fwd": 5,
                     "ln_gelu_bwd": 5}
+LADDER_PREFIX = "flash_microab_"  # K4x's rungs, launched by the ladder's own path
 
 
 def zero_counters() -> dict:
@@ -816,7 +963,7 @@ def main() -> int:
     import torch
 
     card = device_and_build()
-    records = check_kernels()
+    records, ladder_launches = check_kernels()
     serving = check_serving(card=card)
     workdir = REPO / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
@@ -826,8 +973,11 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for r in records:
-        by_path = {"serving": serving["launches"][r["name"]], "training": training["launches"][r["name"]]}
-        r["launches"] = by_path["training" if r["name"] in TRAINING_KERNELS else "serving"]
+        by_path = {"serving": serving["launches"][r["name"]], "training": training["launches"][r["name"]],
+                   "ladder": ladder_launches[r["name"]]}
+        path = ("ladder" if r["name"].startswith(LADDER_PREFIX) else
+                "training" if r["name"] in TRAINING_KERNELS else "serving")
+        r["launches"] = by_path[path]
         r["launches_by_path"] = by_path
     log(json.dumps({"kernels": records}))
     log(card)

@@ -20,6 +20,7 @@ MODULES = [
     "applecider_tpu_torch.ops.attention",
     "applecider_tpu_torch.ops.ln_gelu",
     "applecider_tpu_torch.ops.flash_attention",
+    "applecider_tpu_torch.ops.flash_microab",
     "applecider_tpu_torch.ops.dropout",
     "applecider_tpu_torch.ops.losses",
     "applecider_tpu_torch.ops.conv1d",
@@ -45,6 +46,7 @@ MODULES = [
     "applecider_tpu_torch.tools",
     "applecider_tpu_torch.tools.profile_serving",
     "applecider_tpu_torch.tools.profile_training",
+    "applecider_tpu_torch.tools.flash_microab",
 ]
 
 
