@@ -75,7 +75,8 @@
 //   into V and written undivided (outputs of order 1e9 are the contract).
 // `batched{N}` is flash_fwd_pairs_kernel: kKeepAll for N heads of one
 // batch row in one block, K and V kept in the I/O dtype so that eight
-// heads fit (bf16, L = 258: 149 KB). Every rung has the forward's bound
+// heads fit (bf16, L = 258: 149 KB; f32 at L = 258, 281 KB, is refused
+// at launch). Every rung has the forward's bound
 // (bytes: q, k, v and out once).
 #include "common.cuh"
 
@@ -546,6 +547,12 @@ template <typename T, int HD>
 int launch_pairs(const Args& a, int pair_block) {
   const size_t smem = pairs_smem(a.L, HD, pair_block, sizeof(T));
   if (a.H % pair_block != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // K and V of pair_block heads over a block's shared memory (f32 batched8
+  // at L = 258): refused, as "too many resources requested for launch"
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorLaunchOutOfResources);
   auto kernel = flash_fwd_pairs_kernel<T, HD>;
   if (int err = prepare(kernel, smem)) return err;
   kernel<<<a.BH / pair_block, kWarps * 32, smem, a.stream>>>(

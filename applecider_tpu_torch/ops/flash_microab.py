@@ -20,8 +20,10 @@ Layouts follow ``ops/flash_attention.py``: q/k/v (B, H, L, hd)
 contiguous, ``key_padding_mask`` (B, L) bool with True = padded key. The
 wrapper launches the kernel (``csrc/flash_attention.cu``
 ``ac_flash_fwd_ablate``) on CUDA tensors and runs the plain version on CPU
-tensors; any other device raises. Each rung counts its own launches in
-``KERNELS[mode]``; none of them adds to ``flash_attention.KERNEL_FWD``.
+tensors; any other device raises, and so does a launch whose N heads of K
+and V do not fit a block's shared memory (f32 ``batched8`` at L = 258).
+Each rung counts its own launches in ``KERNELS[mode]``; none of them adds
+to ``flash_attention.KERNEL_FWD``.
 """
 
 from __future__ import annotations
@@ -38,9 +40,6 @@ MODES = ("full", "no_prng", "prng_only_no_apply", "matmul_only", "batched4", "ba
 # KeepMode of csrc/flash_attention.cu for each rung
 _MODE_CODE = {"full": 1, "no_prng": 0, "prng_only_no_apply": 3, "matmul_only": 4,
               "batched4": 0, "batched8": 0}
-# the most dynamic shared memory a block may opt into on sm_90
-MAX_SMEM = 232448
-
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_uint32] + [ctypes.c_int] * 3
 KERNELS = {mode: CudaKernel("flash_attention", "ac_flash_fwd_ablate", _ARGS) for mode in MODES}
@@ -51,28 +50,14 @@ def pair_block(mode: str) -> int:
     return int(mode[len("batched"):]) if mode.startswith("batched") else 0
 
 
-def pairs_smem(L: int, hd: int, n: int, dtype: torch.dtype) -> int:
-    """Shared memory of the ``batched{n}`` kernel: the mask row and a
-    probability row a warp in f32, K and V of ``n`` heads in ``dtype`` with
-    rows padded to an odd number of 32-bit words."""
-    esize = torch.empty((), dtype=dtype).element_size()
-    return 4 * (L + 8 * L) + 2 * esize * n * L * (hd + 4 // esize)
-
-
 def _validate(q, mode: str) -> None:
-    """Refuses, on every device, what the kernel cannot run: an unknown
-    mode, ``pair_block`` not dividing H, or N heads whose K and V do not fit
-    a block's shared memory (f32 ``batched8`` at L = 258)."""
+    """Refuses, on every device, an unknown mode or ``pair_block`` not
+    dividing H."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the ladder has {MODES}")
     n = pair_block(mode)
     if n and q.shape[1] % n:
         raise ValueError(f"{mode}: pair_block {n} does not divide H = {q.shape[1]}")
-    _, _, L, hd = q.shape
-    if n and pairs_smem(L, hd, n, q.dtype) > MAX_SMEM:
-        raise ValueError(f"{mode} at L={L} hd={hd} {q.dtype}: K and V of {n} heads take "
-                         f"{pairs_smem(L, hd, n, q.dtype)} bytes of shared memory, over the "
-                         f"{MAX_SMEM} a block may have")
 
 
 def flash_forward_ablation_reference(q, k, v, key_padding_mask, mode: str, rate: float = 0.4,
@@ -104,12 +89,12 @@ def matmul_only_magnitude(q, k, v, key_padding_mask) -> torch.Tensor:
     return torch.matmul(p.abs(), v.float().abs())
 
 
-def flash_forward_ablation(q, k, v, key_padding_mask, mode: str, rate: float = 0.4, seed: int = 0,
-                           kernels: bool = True) -> torch.Tensor:
+def flash_forward_ablation(q, k, v, key_padding_mask, mode: str, rate: float = 0.4,
+                           seed: int = 0) -> torch.Tensor:
     """One rung of the ladder: the kernel for CUDA tensors, the plain version
-    for CPU tensors (or with ``kernels=False``)."""
+    for CPU tensors."""
     _validate(q, mode)
-    if q.device.type == "cpu" or not kernels:
+    if q.device.type == "cpu":
         return flash_forward_ablation_reference(q, k, v, key_padding_mask, mode, rate, seed)
     dev = fa._check(q, k, v, key_padding_mask)
     thresh, drop_scale = fa._drop_consts(rate)

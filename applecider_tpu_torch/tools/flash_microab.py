@@ -12,7 +12,8 @@ kept. Beside each rung: its bound (q, k, v and out read or written once
 plus the mask, at the card's memory rate, or the two products at its peak
 rate, whichever is larger) and, where one PyTorch call computes the same
 function, that call's time: ``scaled_dot_product_attention`` with the mask,
-``dropout_p = 0.4`` for ``full`` and 0 for ``no_prng`` and ``batched*``.
+``dropout_p = 0.4`` for ``full`` and 0 for the rungs whose output is
+``no_prng``'s (``prng_only_no_apply`` and ``batched*`` too).
 Then the split of ``full``'s time: softmax (``no_prng - matmul_only``),
 draw (``prng_only_no_apply - no_prng``), apply (``full -
 prng_only_no_apply``) and pairing (``batched{N} - no_prng``).
@@ -34,17 +35,23 @@ from applecider_tpu_torch.ops.flash_microab import MODES, flash_forward_ablation
 
 TRAIN_SHAPE = (256, 8, 258, 16)
 RATE, SEED = 0.4, 7
+ROUNDS, ITERS = 2, 30
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): bytes/s and ops/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 LADDER = ("full", "prng_only_no_apply", "no_prng", "matmul_only")
+# the dropout_p of the SDPA call that computes each rung's function;
+# matmul_only has none
+LIBRARY_RATE = {"full": RATE, "no_prng": 0.0, "prng_only_no_apply": 0.0, "batched4": 0.0,
+                "batched8": 0.0}
 
 
-def make_inputs(shape=TRAIN_SHAPE, dtype=torch.bfloat16, device="cuda", seed: int = 0):
-    """q, k, v (B, H, L, hd) and the (B, L) key mask, True = padded."""
-    B, H, L, hd = shape
-    rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+def make_inputs(dtype=torch.bfloat16, device="cuda"):
+    """The ladder's q, k, v (B, H, L, hd) at the train shape and the (B, L)
+    key mask, True = padded."""
+    B, H, L, hd = TRAIN_SHAPE
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=TRAIN_SHAPE).astype(np.float32)).to(device, dtype)
                for _ in range(3))
     mask = torch.from_numpy(rng.random((B, L)) < 0.2).to(device)
     return q, k, v, mask
@@ -83,34 +90,33 @@ def _event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def ladder(device="cuda", shape=TRAIN_SHAPE, dtype=torch.bfloat16, rate: float = RATE,
-           seed: int = SEED, rounds: int = 2, iters: int = 30) -> dict:
-    """Time every rung and its library call on ``device``; the report."""
+def ladder(device="cuda") -> dict:
+    """Time every rung and its library call on ``device``, at the train
+    shape in bf16; the report."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"the ladder times the card; got {dev}")
-    q, k, v, mask = make_inputs(shape, dtype, dev)
+    q, k, v, mask = make_inputs(device=dev)
     attend = ~mask[:, None, None, :]
-    rungs = {m: (lambda m=m: flash_forward_ablation(q, k, v, mask, m, rate, seed)) for m in MODES}
-    library = {rate: lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attend, dropout_p=rate),
-               0.0: lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attend, dropout_p=0.0)}
+    rungs = {m: (lambda m=m: flash_forward_ablation(q, k, v, mask, m, RATE, SEED)) for m in MODES}
+    library = {p: (lambda p=p: F.scaled_dot_product_attention(q, k, v, attn_mask=attend, dropout_p=p))
+               for p in set(LIBRARY_RATE.values())}
     for fn in (*rungs.values(), *library.values()):  # first launches, library plans
         fn()
     torch.cuda.synchronize()
     ms, lib_ms = {}, {}
-    for _ in range(rounds):
+    for _ in range(ROUNDS):
         for m, fn in rungs.items():
-            ms[m] = min(ms.get(m, float("inf")), _event_ms(fn, iters))
+            ms[m] = min(ms.get(m, float("inf")), _event_ms(fn, ITERS))
         for p, fn in library.items():
-            lib_ms[p] = min(lib_ms.get(p, float("inf")), _event_ms(fn, iters))
-    b_ms, b_by = bound_ms(shape, dtype)
-    lib_of = {"full": lib_ms[rate], "no_prng": lib_ms[0.0], "batched4": lib_ms[0.0],
-              "batched8": lib_ms[0.0]}
-    B, H, L, hd = shape
+            lib_ms[p] = min(lib_ms.get(p, float("inf")), _event_ms(fn, ITERS))
+    b_ms, b_by = bound_ms(TRAIN_SHAPE, torch.bfloat16)
+    B, H, L, hd = TRAIN_SHAPE
     return {
-        "shape": {"B": B, "H": H, "L": L, "hd": hd}, "dtype": str(dtype).removeprefix("torch."),
-        "rate": rate, "rounds": rounds, "iters": iters,
-        "rungs": {m: {"ms": ms[m], "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_of.get(m)}
+        "shape": {"B": B, "H": H, "L": L, "hd": hd}, "dtype": "bfloat16",
+        "rate": RATE, "rounds": ROUNDS, "iters": ITERS,
+        "rungs": {m: {"ms": ms[m], "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms[LIBRARY_RATE[m]] if m in LIBRARY_RATE else None}
                   for m in MODES},
         "stages": split(ms),
     }

@@ -17,9 +17,11 @@ Phases, in order; any failure exits non-zero before the result line:
    Philox kernels against the bits kernels fed the same keep mask, and the
    keep rate over the train shape; K3b at every SpectraNet stage; K4x, the
    forward ablation ladder: every rung against its plain version in f32
-   and bf16, ``full`` equal to K4a's forward and ``prng_only_no_apply`` to
-   ``no_prng`` bit for bit, and ``prng_only_no_apply``'s Philox draw
-   present in its SASS; then the ladder's own path,
+   and bf16, on prefix-length masks, with no padded key, and on the
+   ladder's own inputs (B = 256, random mask), ``full`` equal to K4a's
+   forward and ``prng_only_no_apply`` to ``no_prng`` bit for bit, and
+   ``prng_only_no_apply``'s Philox draw present in its SASS; then the
+   ladder's own path,
    ``tools/flash_microab.ladder`` at the train shape, with each rung's
    launch count read from that run alone;
 3. the serving path at the full published AppleCider widths: 2048
@@ -363,11 +365,10 @@ def check_flash_prng(rng, dev, B: int = 64) -> dict:
     return {"keep_fraction": frac, "seed_differ": differ}
 
 
-def time_flash(rng, dev, plain_B: int = 64) -> tuple[dict, dict]:
+def time_flash(rng, dev) -> tuple[dict, dict]:
     """K4 forward and backward at the train shape in bf16 (Philox): kernel,
-    plain twin (at ``plain_B``: its (B, H, L, L) f32 tensors and int64
-    Philox do not fit the card's time budget at B = 256), SDPA with dropout
-    0.4 as the library yardstick, and the bounds."""
+    plain twin on the same inputs, SDPA with dropout 0.4 as the library
+    yardstick, and the bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -379,15 +380,14 @@ def time_flash(rng, dev, plain_B: int = 64) -> tuple[dict, dict]:
     seed = 7
     ms_f = time_ms(lambda: fa.flash_forward(q, k, v, mask, RATE, seed=seed))
     ms_b = time_ms(lambda: fa.flash_backward(q, k, v, mask, RATE, do, seed=seed))
-    qp, kp, vp, dop, maskp = (t[:plain_B] for t in (q, k, v, do, mask))
 
     def plain_fwd():
-        keep = fa.dropout_bits_reference(seed, plain_B, H, L, device=dev) >= thresh
-        return fa.flash_attention_reference(qp, kp, vp, maskp, keep, RATE)
+        keep = fa.dropout_bits_reference(seed, B, H, L, device=dev) >= thresh
+        return fa.flash_attention_reference(q, k, v, mask, keep, RATE)
 
     def plain_bwd():
-        keep = fa.dropout_bits_reference(seed, plain_B, H, L, device=dev) >= thresh
-        return fa.flash_attention_backward_reference(qp, kp, vp, maskp, keep, RATE, dop)
+        keep = fa.dropout_bits_reference(seed, B, H, L, device=dev) >= thresh
+        return fa.flash_attention_backward_reference(q, k, v, mask, keep, RATE, do)
 
     ms_pf = time_ms(plain_fwd, iters=2, reps=3)
     ms_pb = time_ms(plain_bwd, iters=2, reps=3)
@@ -401,30 +401,30 @@ def time_flash(rng, dev, plain_B: int = 64) -> tuple[dict, dict]:
     fb, fby = bound_ms(4 * io + B * L, 4.0 * B * H * L * L * hd, "bfloat16")
     bb, bby = bound_ms(7 * io + B * L, 10.0 * B * H * L * L * hd, "bfloat16")
     shape = f"B={B} H={H} L={L} hd={hd} rate={RATE}"
-    log(f"K4a fwd {shape} bf16: kernel {ms_f:.4f} ms, plain {ms_pf:.4f} ms at B={plain_B}, "
+    log(f"K4a fwd {shape} bf16: kernel {ms_f:.4f} ms, plain {ms_pf:.4f} ms, "
         f"sdpa(dropout) {ms_lf:.4f} ms, bound {fb:.5f} ms ({fby})")
-    log(f"K4a bwd {shape} bf16: kernel {ms_b:.4f} ms, plain {ms_pb:.4f} ms at B={plain_B}, "
+    log(f"K4a bwd {shape} bf16: kernel {ms_b:.4f} ms, plain {ms_pb:.4f} ms, "
         f"sdpa(dropout) backward {ms_lb:.4f} ms, bound {bb:.5f} ms ({bby})")
 
     # K4b: the same kernels reading injected bits, (B, H, L, L) u8 more to read
     gen = torch.Generator(device=dev).manual_seed(5)
     bits = torch.randint(0, 256, (B, H, L, L), dtype=torch.uint8, device=dev, generator=gen)
-    keep = bits[:plain_B] >= thresh
+    keep = bits >= thresh
     ms_fbits = time_ms(lambda: fa.flash_forward(q, k, v, mask, RATE, bits=bits))
     ms_bbits = time_ms(lambda: fa.flash_backward(q, k, v, mask, RATE, do, bits=bits))
-    ms_pfbits = time_ms(lambda: fa.flash_attention_reference(qp, kp, vp, maskp, keep, RATE),
+    ms_pfbits = time_ms(lambda: fa.flash_attention_reference(q, k, v, mask, keep, RATE),
                         iters=2, reps=3)
-    ms_pbbits = time_ms(lambda: fa.flash_attention_backward_reference(qp, kp, vp, maskp, keep, RATE,
-                                                                      dop), iters=2, reps=3)
+    ms_pbbits = time_ms(lambda: fa.flash_attention_backward_reference(q, k, v, mask, keep, RATE, do),
+                        iters=2, reps=3)
     fbb, fbby = bound_ms(4 * io + B * L + bits.numel(), 4.0 * B * H * L * L * hd, "bfloat16")
     bbb, bbby = bound_ms(7 * io + B * L + bits.numel(), 10.0 * B * H * L * L * hd, "bfloat16")
-    log(f"K4b fwd {shape} bf16, injected bits: kernel {ms_fbits:.4f} ms, plain {ms_pfbits:.4f} ms "
-        f"at B={plain_B}, bound {fbb:.5f} ms ({fbby}), library none")
-    log(f"K4b bwd {shape} bf16, injected bits: kernel {ms_bbits:.4f} ms, plain {ms_pbbits:.4f} ms "
-        f"at B={plain_B}, bound {bbb:.5f} ms ({bbby}), library none")
+    log(f"K4b fwd {shape} bf16, injected bits: kernel {ms_fbits:.4f} ms, plain {ms_pfbits:.4f} ms, "
+        f"bound {fbb:.5f} ms ({fbby}), library none")
+    log(f"K4b bwd {shape} bf16, injected bits: kernel {ms_bbits:.4f} ms, plain {ms_pbbits:.4f} ms, "
+        f"bound {bbb:.5f} ms ({bbby}), library none")
     del bits, keep
     common = dict(route="cuda", source="applecider_tpu_torch/csrc/flash_attention.cu", shape=shape,
-                  dtype="bfloat16", plain_B=plain_B)
+                  dtype="bfloat16")
     fwd = dict(name="flash_attention_fwd", replaces="applecider_tpu/ops/flash_attention.py:162",
                ms=ms_f, plain_ms=ms_pf, bound_ms=fb, bound_by=fby, library_ms=ms_lf, **common)
     bwd = dict(name="flash_attention_bwd", replaces="applecider_tpu/ops/flash_attention.py:200",
@@ -434,39 +434,53 @@ def time_flash(rng, dev, plain_B: int = 64) -> tuple[dict, dict]:
 
 def check_flash_ladder(rng, dev, B: int = 64) -> dict:
     """K4x: every rung of the forward ablation ladder against its plain
-    version at L = 64 and 258, in f32 and bf16. f32 <= 1e-5 abs and bf16
-    <= 2e-2 * max(1, |plain|), as K4; ``matmul_only`` sums terms of order
-    1e9 that cancel, so its f32 rounding error scales with M = sum_j
+    version, in f32 and bf16, on four inputs: prefix-length key masks at
+    B = 64, L = 64 and 258; B = 64, L = 258 with no padded key; and the
+    ladder's own inputs (``tools/flash_microab.make_inputs``: B = 256,
+    L = 258, a random key mask U < 0.2, its seed), the shape and mask the
+    timed path gives the kernels. f32 <= 1e-5 abs and bf16 <= 2e-2 * max(1,
+    |plain|), as K4. ``matmul_only`` sums terms of order 1e9 that cancel
+    where a key is padded, so its f32 rounding error scales with M = sum_j
     |p_j||v_j| (``matmul_only_magnitude``), not with |out|: f32 <= 1e-6 *
-    max(1, M), bf16 <= 2e-2 * max(1, |plain|) + 1e-6 * M. ``full`` must
-    equal ``flash_forward(seed=)``'s kernel and ``prng_only_no_apply`` the
+    max(1, M), bf16 <= 2e-2 * max(1, |plain|) + 1e-6 * M; without a padded
+    key M is O(100) and the limit tight. ``full`` must equal
+    ``flash_forward(seed=)``'s kernel and ``prng_only_no_apply`` the
     ``no_prng`` kernel at max |d| = 0. f32 ``batched8`` at L = 258 does not
-    fit a block's shared memory and must be refused. Returns max |d| per
-    rung at L = 258 in bf16."""
+    fit a block's shared memory and its launch must be refused. Returns
+    max |d| per rung on the ladder's own inputs in bf16."""
     import torch
 
     from applecider_tpu_torch.ops import flash_attention as fa
     from applecider_tpu_torch.ops import flash_microab as fm
+    from applecider_tpu_torch.tools import flash_microab as tool
 
-    seed = 20260102
     errs = {}
-    for L in (64, TRAIN_L):
+    for case, L in (("prefix masks", 64), ("prefix masks", TRAIN_L), ("no padded key", TRAIN_L),
+                    ("ladder inputs", TRAIN_L)):
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
             dname = "float32" if f32 else "bfloat16"
-            q, k, v, _, mask = _attn_inputs(rng, B, L, dtype, dev)
+            seed = 20260102
+            if case == "ladder inputs":
+                q, k, v, mask = tool.make_inputs(dtype, dev)
+                seed = tool.SEED
+            else:
+                q, k, v, _, mask = _attn_inputs(rng, B, L, dtype, dev)
+                if case == "no padded key":
+                    mask = torch.zeros_like(mask)
+            tag = f"K4x {case}, B={q.shape[0]} H={HEADS} L={L} {dname}"
             outs = {}
             for mode in fm.MODES:
-                n = fm.pair_block(mode)
-                if n and fm.pairs_smem(L, HEAD_DIM, n, dtype) > fm.MAX_SMEM:
+                if f32 and mode == "batched8" and L == TRAIN_L:
                     try:
                         fm.flash_forward_ablation(q, k, v, mask, mode, RATE, seed)
-                    except ValueError as err:
-                        log(f"K4x {mode} B={B} L={L} {dname}: refused, as it must be ({err})")
+                    except RuntimeError as err:
+                        log(f"{tag} {mode}: refused, as it must be ({err})")
                         continue
-                    raise SystemExit(f"K4x {mode} at L={L} {dname} ran past the shared-memory limit")
+                    raise SystemExit(f"{tag} {mode} ran past a block's shared memory")
                 got = outs[mode] = fm.flash_forward_ablation(q, k, v, mask, mode, RATE, seed)
                 want = fm.flash_forward_ablation_reference(q, k, v, mask, mode, RATE, seed)
+                note = ""
                 if mode == "matmul_only":
                     mag = fm.matmul_only_magnitude(q, k, v, mask)
                     d = (got.float() - want.float()).abs()
@@ -475,25 +489,27 @@ def check_flash_ladder(rng, dev, B: int = 64) -> dict:
                         lim = lim + 2e-2 * want.float().abs().clamp(min=1.0)
                     err, ok = float(d.max()), bool((d <= lim).all())
                     rule = "<= 1e-6*max(1,M)" if f32 else "<= 2e-2*max(1,|plain|) + 1e-6*M"
+                    note = f", max M={float(mag.max()):.3g}"
+                    del mag, d, lim
                 else:
                     err, ok = _tol_ok(got, want, dtype) if f32 else _rel_ok(got, want, 2e-2)
                     rule = "<= 1e-5" if f32 else "<= 2e-2*max(1,|plain|)"
-                log(f"K4x {mode} B={B} H={HEADS} L={L} {dname}: max|d|={err:.3g} ({rule}) "
-                    f"{'OK' if ok else 'FAIL'}")
+                log(f"{tag} {mode}: max|d|={err:.3g} ({rule}{note}) {'OK' if ok else 'FAIL'}")
                 if not ok:
-                    raise SystemExit(f"K4x {mode} disagrees with its plain version at L={L} {dname}")
-                if L == TRAIN_L and not f32:
+                    raise SystemExit(f"{tag}: {mode} disagrees with its plain version")
+                if case == "ladder inputs" and not f32:
                     errs[mode] = err
+                del want
             d_full = float((outs["full"].float() - fa.flash_forward(q, k, v, mask, RATE, seed=seed)
                             .float()).abs().max())
             d_draw = float((outs["prng_only_no_apply"].float() - outs["no_prng"].float()).abs().max())
             d_pairs = {m: float((outs[m].float() - outs["no_prng"].float()).abs().max())
                        for m in outs if m.startswith("batched")}
-            log(f"K4x L={L} {dname}: full vs flash_forward(seed) kernel max|d|={d_full}, "
+            log(f"{tag}: full vs flash_forward(seed) kernel max|d|={d_full}, "
                 f"prng_only_no_apply vs no_prng kernel max|d|={d_draw} (0 required); "
                 f"batched vs no_prng kernel max|d| {d_pairs}")
             if d_full or d_draw:
-                raise SystemExit("K4x full is not K4a's forward, or the draw changed the output")
+                raise SystemExit(f"{tag}: full is not K4a's forward, or the draw changed the output")
             del q, k, v, mask, outs
     return errs
 
@@ -528,10 +544,10 @@ def check_draw_in_sass() -> None:
         raise SystemExit("K4x prng_only_no_apply lost its Philox draw, or the SASS was not found")
 
 
-def time_flash_ladder(dev, plain_B: int = 64) -> tuple[list, dict]:
+def time_flash_ladder(dev) -> tuple[list, dict]:
     """The ladder's own path: ``tools/flash_microab.ladder`` at the train
     shape, every rung's launches read from that run alone; then each rung's
-    plain version at ``plain_B`` (outside the counted run)."""
+    plain version on the same inputs (outside the counted run)."""
     from applecider_tpu_torch.ops import flash_microab as fm
     from applecider_tpu_torch.tools import flash_microab as tool
 
@@ -542,7 +558,7 @@ def time_flash_ladder(dev, plain_B: int = 64) -> tuple[list, dict]:
     stray = [n for n in launches if not n.startswith(LADDER_PREFIX) and launches[n]]
     if missing or stray:
         raise SystemExit(f"the ladder never launched {missing}, or launched other kernels {stray}")
-    q, k, v, mask = (t[:plain_B] for t in tool.make_inputs(device=dev))
+    q, k, v, mask = tool.make_inputs(device=dev)
     shape = "B={B} H={H} L={L} hd={hd} rate=".format(**report["shape"]) + str(report["rate"])
     records = []
     for mode in fm.MODES:
@@ -550,16 +566,15 @@ def time_flash_ladder(dev, plain_B: int = 64) -> tuple[list, dict]:
         plain = time_ms(lambda: fm.flash_forward_ablation_reference(q, k, v, mask, mode, tool.RATE,
                                                                     tool.SEED), iters=2, reps=3)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(f"K4x ladder {mode} {shape} bf16: kernel {r['ms']:.4f} ms, plain {plain:.4f} ms at "
-            f"B={plain_B}, sdpa {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+        log(f"K4x ladder {mode} {shape} bf16: kernel {r['ms']:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
             f"launches {launches[LADDER_PREFIX + mode]}")
         line = 79 if mode.startswith("batched") else 41
         records.append(dict(name=LADDER_PREFIX + mode, route="cuda",
                             source="applecider_tpu_torch/csrc/flash_attention.cu",
                             replaces=f"scripts/tpu_flash_microab.py:{line}", shape=shape,
-                            dtype="bfloat16", plain_B=plain_B, ms=r["ms"], plain_ms=plain,
-                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+                            dtype="bfloat16", ms=r["ms"], plain_ms=plain, bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     for name, st in report["stages"].items():
         log(f"K4x split of full: {name} {st['ms']:+.4f} ms ({st['share_of_full']:+.1%})")
     return records, launches

@@ -9,9 +9,11 @@ function on injected bits), and ``prng_only_no_apply`` equal to ``no_prng``.
 
 Tolerances: f32 1e-5 abs; bf16 2e-2·max(1, |ref|) (both versions round
 the same f32 scores and sums to bf16, and a value between two bf16 steps
-may land on either). ``matmul_only`` sums terms of order 1e9 that cancel,
-so its f32 rounding error scales with sum_j |p_j||v_j| (``M``), not with
-|out|: f32 within 1e-6·max(1, M), bf16 within 2e-2·max(1, |ref|) + 1e-6·M.
+may land on either). ``matmul_only`` sums terms of order 1e9 that cancel
+where a key is padded, so its f32 rounding error scales with sum_j
+|p_j||v_j| (``M``), not with |out|: f32 within 1e-6·max(1, M), bf16 within
+2e-2·max(1, |ref|) + 1e-6·M. Without a padded key M is O(L) and that
+limit is tight; a case with no padded key checks it there.
 """
 
 import functools
@@ -112,6 +114,25 @@ def test_plain_rung_matches_the_jax_ladder(script, mode, dtypes, L):
     assert (d <= lim).all(), float(d.max())
 
 
+@pytest.mark.parametrize("L", [24, 40])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_matmul_only_without_padding_matches_the_jax_ladder(script, dtypes, L):
+    """No padded key: no -1e9 in the sums, M = sum_j |p_j||v_j| is O(L),
+    so 1e-6·max(1, M) holds the live keys' products tightly."""
+    tdt, jdt = dtypes
+    q, k, v, pad = _inputs(L)
+    pad = np.zeros_like(pad)
+    want = _jax_ladder(script, "matmul_only", q, k, v, pad, jdt)
+    got, ts = _port("matmul_only", q, k, v, pad, tdt)
+    mag = fm.matmul_only_magnitude(*ts, torch.from_numpy(pad)).numpy()
+    assert mag.max() < 1e3 and np.abs(want).max() < 1e3
+    lim = 1e-6 * np.maximum(1.0, mag)
+    if tdt == torch.bfloat16:
+        lim = lim + 2e-2 * np.maximum(1.0, np.abs(want))
+    d = np.abs(got.float().numpy() - want)
+    assert (d <= lim).all(), float(d.max())
+
+
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
 def test_full_on_injected_bits_matches_pallas_bits(dtypes):
     """``full`` with a seed == the JAX bits kernel fed the same Philox bits."""
@@ -144,25 +165,25 @@ def test_rung_equals_no_prng(mode):
 
 @pytest.mark.parametrize("case, match", [
     ("meta", "CUDA tensors"), ("unknown", "unknown mode"), ("batched4_h6", "does not divide"),
-    ("batched8_h4", "does not divide"), ("batched8_f32_258", "shared memory")])
+    ("batched8_h4", "does not divide")])
 def test_wrapper_refuses(case, match):
     """On every device: a meta tensor, an unknown mode, pair_block not
-    dividing H, and f32 ``batched8`` at L = 258, whose K and V of 8 heads
-    (281 KB) do not fit a block's shared memory (no fallback)."""
+    dividing H."""
     H = {"batched4_h6": 6, "batched8_h4": 4}.get(case, 8)
-    L = 258 if case == "batched8_f32_258" else 3
-    q = torch.zeros((1, H, L, 16), device="meta" if case == "meta" else "cpu")
+    q = torch.zeros((1, H, 3, 16), device="meta" if case == "meta" else "cpu")
     mode = {"meta": "no_prng", "unknown": "no_softmax"}.get(case, case.split("_")[0])
     with pytest.raises(ValueError, match=match):
         fm.flash_forward_ablation(q, q, q, None, mode)
 
 
-def test_pairs_layout_fits_eight_bf16_heads_at_the_train_shape():
-    """K and V of 8 heads at L = 258 fit a block's shared memory in bf16,
-    and of 4 heads in f32."""
-    assert fm.pairs_smem(258, 16, 8, torch.bfloat16) <= fm.MAX_SMEM
-    assert fm.pairs_smem(258, 16, 4, torch.float32) <= fm.MAX_SMEM
-    assert fm.pairs_smem(258, 16, 8, torch.float32) > fm.MAX_SMEM
+def test_plain_batched8_runs_on_the_cpu_at_the_train_length():
+    """f32 ``batched8`` at L = 258, whose launch the card refuses (K and V
+    of 8 heads over a block's shared memory), is the plain version on CPU
+    tensors: ``no_prng``'s output."""
+    q, k, v, pad = _inputs(258, B=1)
+    got, _ = _port("batched8", q, k, v, pad, torch.float32)
+    want, _ = _port("no_prng", q, k, v, pad, torch.float32)
+    assert torch.equal(got, want)
 
 
 def test_loading_the_script_keeps_the_jax_cache_setting():
@@ -187,6 +208,20 @@ def test_tool_split_and_bound():
     assert total == pytest.approx(1.0)
     b, by = tool.bound_ms(tool.TRAIN_SHAPE, torch.bfloat16)
     assert by == "bytes" and b == pytest.approx(0.0202, abs=5e-5)
+
+
+def test_tool_inputs_and_library_calls():
+    """The ladder's inputs are the train shape with a key mask U < 0.2;
+    each rung is timed beside the SDPA call computing its function: with
+    dropout for ``full``, without for every rung whose output is
+    ``no_prng``'s, none for ``matmul_only``."""
+    q, k, v, mask = tool.make_inputs(device="cpu")
+    assert q.shape == k.shape == v.shape == tool.TRAIN_SHAPE and q.dtype == torch.bfloat16
+    assert mask.shape == (256, 258) and 0.19 < float(mask.float().mean()) < 0.21
+    assert tool.LIBRARY_RATE["full"] == tool.RATE
+    assert {m for m, p in tool.LIBRARY_RATE.items() if p == 0.0} == {
+        "no_prng", "prng_only_no_apply", "batched4", "batched8"}
+    assert set(fm.MODES) - set(tool.LIBRARY_RATE) == {"matmul_only"}
 
 
 def test_tool_needs_a_card(monkeypatch):
