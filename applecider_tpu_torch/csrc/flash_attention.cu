@@ -37,26 +37,60 @@
 // at 3.35 TB/s (its 8.7 GFLOP take 9 us on the bf16 tensor cores); the
 // backward moves q, k, v, do, dq, dk and dv once, 119 MB, about 36 us. The
 // (L, L) scores, probabilities and the 136 M dropout bytes a step never
-// touch device memory. This first version runs every product on the f32
-// FMA units (head width 16 is one MMA k-step), so arithmetic, not memory,
-// is its own limit; a tensor-core version is later work.
+// touch device memory. The forward and the f32 backward run every product
+// on the f32 FMA units, so arithmetic, not memory, is their own limit. The
+// bf16 backward runs its products on the tensor cores (mma.sync m16n8k16,
+// bf16 operands, f32 accumulation: head width 16 is one k-step): 10
+// products of 2 * 16 * L^2 flops a head (4 x S, 3 x dO.V^T, dq, dk, dv),
+// 44 GFLOP a launch, ~0.05 ms at the dense rate; its own limit is the
+// elementwise work between them (exp, keep, ds) and the Philox draw.
 //
-// Design, one block per (batch, head), eight warps:
-//   forward: K and V of the head in f32 shared memory (rows padded to
-//   HD + 1 words: no bank conflicts), as K2. Each warp owns query rows i =
-//   warp, warp + 8, ...: scores of keys j = lane, lane + 32, ... into a
-//   per-warp shared row, max and sum by shuffles, then the keep decision
-//   for the row (Philox: each lane draws one counter, four bytes, for the
-//   elements of the row it covers), then P.V split over (HD lanes) x
-//   (32 / HD key groups).
-//   backward: Q, K, V and dO of the head in shared memory (4 x 258 x 17 x
-//   4 B = 70 KB at the train shape). Pass A, a warp per query row: the row
-//   max, denominator and t, stored in shared memory, the keep decisions as
-//   a bit mask in shared memory (L x ceil(L / 32) words, 9.3 KB), and dq_i.
-//   Pass B, a warp per key column j, lanes over the rows i: p_ij, keep_ij
-//   and ds_ij recomputed from the stored row statistics, dk_j and dv_j
-//   accumulated in registers and reduced by shuffles. No atomics: every
-//   output element is written once, in a fixed summation order.
+// Design, one block per (batch, head):
+//   forward (eight warps): K and V of the head in f32 shared memory (rows
+//   padded to HD + 1 words: no bank conflicts), as K2. Each warp owns query
+//   rows i = warp, warp + 8, ...: scores of keys j = lane, lane + 32, ...
+//   into a per-warp shared row, max and sum by shuffles, then the keep
+//   decision for the row (Philox: each lane draws one counter, four bytes,
+//   for the elements of the row it covers), then P.V split over (HD lanes)
+//   x (32 / HD key groups).
+//   backward, f32 (flash_bwd_kernel, eight warps): Q, K, V and dO of the
+//   head in f32 shared memory. Pass A, a warp per query row: the row max,
+//   denominator and t, stored in shared memory, the keep decisions as a bit
+//   mask in shared memory, and dq_i. Pass B, a warp per key column j, lanes
+//   over the rows i: p_ij, keep_ij and ds_ij recomputed from the stored row
+//   statistics, dk_j and dv_j accumulated in registers and reduced by
+//   shuffles. f32 stays here: TF32 products would miss the f32 backward's
+//   1e-4 * max(1, |g|) agreement with the plain version; launch_bwd picks
+//   the kernel by dtype.
+//   backward, bf16 (flash_bwd_mma_kernel, kBwdWarps = 4 warps): Q, K, V,
+//   dO (and q.scale rounded to bf16 unless HD = 16, where scale = 1/4 makes
+//   it exact) in bf16 shared memory, rows zero-padded to Lp = 16 *
+//   ceil(L / 16) and to 16 columns, 16-byte chunks XOR-swizzled so that
+//   ldmatrix is free of bank conflicts; the key mask; the row statistics
+//   (m, 1 / denom, t); with dropout, the keep mask as one byte a lane for
+//   every 16 x 16 tile: 51,664 bytes at the train shape, four blocks an SM.
+//   Pass A, a warp per 16-query-row tile. The warp first draws the keep
+//   mask of its 16 rows: the Philox counters (or the injected bytes) into
+//   flat bits in its scratch, then converted into the tile bytes, so
+//   kPhilox and kBits differ only there and every element is drawn once;
+//   no block barrier holds the other warps meanwhile. Then three sweeps
+//   over the keys, 16 at a time, S = (q.scale).K^T by mma: the row max;
+//   then denom (the exact pre-dropout sum of exp(s - m)) and t with
+//   dO.V^T by mma; then ds = p (dp - t), rounded to bf16 and kept in
+//   registers (the accumulators of two n8 tiles are the A operand of one
+//   k16 step), and dq += ds.K by mma with K read by ldmatrix.trans. Pass
+//   B, a warp per 16-key tile, one sweep over the queries: S^T and dpd^T by
+//   mma, p from the stored statistics, pd and ds in bf16 registers, dv +=
+//   pd^T.dO and dk += ds^T.q by mma. dk takes the raw q: for a bf16 q,
+//   round((q * scale) / scale) = q, since the f32 round trip stays within
+//   an f32 ulp or two of q. Scores are kept in the log2 domain (times
+//   log2(e)) so that each exp is one subtraction and one ex2. Keys at index
+//   L or beyond score -inf and keep nothing, so their exp is exactly 0; the
+//   user's key mask stays -1e9, so that a row with every key masked gets
+//   the plain version's uniform softmax. Operands are rounded to bf16
+//   before each product as in the FMA kernel, so only the order of the f32
+//   sums differs from it. Neither kernel uses atomics: every output element
+//   is written once, in a fixed summation order.
 //
 // K4x, the forward ablation ladder (replaces scripts/tpu_flash_microab.py
 // _fwd_kernel and _fwd_kernel_batched, Pallas, TPU): the same forward with
@@ -78,6 +112,8 @@
 // heads fit (bf16, L = 258: 149 KB; f32 at L = 258, 281 KB, is refused
 // at launch). Every rung has the forward's bound
 // (bytes: q, k, v and out once).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -482,6 +518,423 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_kernel(
   }
 }
 
+// ---- bf16 backward on the tensor cores (see the header)
+
+#ifndef AC_BWD_WARPS
+#define AC_BWD_WARPS 4
+#endif
+constexpr int kBwdWarps = AC_BWD_WARPS;
+
+// 16 x 16 bf16 fragments from shared memory: four 8 x 8 matrices, lane l
+// giving the address of row l % 8 of matrix l / 8. .trans transposes each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// d += a.b: m16n8k16, bf16 operands, f32 accumulation. Lane l = 4g + t
+// holds a = {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)},
+// b = {(k 2t..2t+1, n g), (k 2t+8.., n g)} and d = {(g, 2t), (g, 2t+1),
+// (g+8, 2t), (g+8, 2t+1)}: the d of two n8 tiles side by side, packed
+// pairwise, is the a of one k16 step.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// a-fragment of the k16 step made of two n8 accumulator tiles
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[2][4]) {
+  a[0] = pack_bf16(c[0][0], c[0][1]);
+  a[1] = pack_bf16(c[0][2], c[0][3]);
+  a[2] = pack_bf16(c[1][0], c[1][1]);
+  a[3] = pack_bf16(c[1][2], c[1][3]);
+}
+
+// Row r, 16-byte chunk ch of a (rows, HDP) bf16 array: the chunk is XORed
+// with a function of r so that the eight rows one ldmatrix reads fall in
+// distinct banks (rows of 32 or 64 bytes).
+template <int HDP>
+__device__ __forceinline__ int swz(int r, int ch) {
+  constexpr int kChunks = HDP / 8;
+  return r * HDP + 8 * (ch ^ ((r / (8 / kChunks)) % kChunks));
+}
+
+// Addresses lane l gives ldmatrix for the 16-row tile at row r0: the
+// a-fragment (rows split over matrices 0/1, chunks over 2/3) of k-step ks;
+// with .trans, on a tile whose 16 rows are k, the b-fragments {b0, b1} of
+// columns 16ks..16ks+7, then of 16ks+8..16ks+15.
+template <int HDP>
+__device__ __forceinline__ const __nv_bfloat16* a_addr(const __nv_bfloat16* base, int r0, int ks, int lane) {
+  return base + swz<HDP>(r0 + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * ks + (lane >> 4));
+}
+// b-fragments of two n8 tiles (the tile's rows are n; chunks over 0/1, n
+// tiles over 2/3) of k-step ks: {b0, b1} of rows r0..r0+7, then of r0+8..
+template <int HDP>
+__device__ __forceinline__ const __nv_bfloat16* b_addr(const __nv_bfloat16* base, int r0, int ks, int lane) {
+  return base + swz<HDP>(r0 + (lane & 7) + ((lane >> 4) & 1) * 8, 2 * ks + ((lane >> 3) & 1));
+}
+// 2^x on the SFU (ex2.approx: 2^-22 relative error)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// c = a.src^T of a 16 x 16 tile: a, 16 rows x HDP, in registers; src
+// rows r0..r0+15 in shared memory
+template <int HDP>
+__device__ __forceinline__ void tile_abt(float (&c)[2][4], const uint32_t (&a)[HDP / 16][4],
+                                         const __nv_bfloat16* src, int r0, int lane) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    uint32_t b[4];
+    ldsm_x4(b, b_addr<HDP>(src, r0, kk, lane));
+    mma_bf16(c[0], a[kk], b[0], b[1]);
+    mma_bf16(c[1], a[kk], b[2], b[3]);
+  }
+}
+
+// Scores of the 16 x 16 tile at (the 16 rows of qa, keys j0..j0+15) in the
+// log2 domain: (qa.ks^T) * mul + neg2, with neg2 the key mask times log2(e)
+template <int HDP>
+__device__ __forceinline__ void tile_scores(float (&s)[2][4], const uint32_t (&qa)[HDP / 16][4],
+                                            const __nv_bfloat16* ks, const float* neg2, int j0,
+                                            float mul, int lane) {
+  tile_abt<HDP>(s, qa, ks, j0, lane);
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const float2 ng = *reinterpret_cast<const float2*>(neg2 + j0 + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = fmaf(s[n][e], mul, (e & 1) ? ng.y : ng.x);
+  }
+}
+
+// dp = keep * (da.vs^T) * drop_scale of the 16 x 16 tile at keys j0, its
+// keep bits in byte krow[2 * j0] (pass A's layout, see draw_tile_row)
+template <int HDP, int MODE>
+__device__ __forceinline__ void tile_dp(float (&dp)[2][4], const uint32_t (&da)[HDP / 16][4],
+                                        const __nv_bfloat16* vs, const uint8_t* krow, int j0,
+                                        float drop_scale, int lane) {
+  tile_abt<HDP>(dp, da, vs, j0, lane);
+  if constexpr (MODE != kKeepAll) {
+    const uint32_t kb = krow[2 * j0];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n][e] *= (kb >> (4 * (e >> 1) + 2 * n + (e & 1))) & 1u ? drop_scale : 0.f;
+    }
+  }
+}
+
+// acc (16 rows x HDP) += a (16 x 16, k = rows r0..r0+15 of src) . src
+template <int HDP>
+__device__ __forceinline__ void tile_acc(float (&acc)[HDP / 8][4], const uint32_t (&a)[4],
+                                         const __nv_bfloat16* src, int r0, int lane) {
+#pragma unroll
+  for (int p = 0; p < HDP / 16; ++p) {
+    uint32_t b[4];
+    ldsm_x4_t(b, a_addr<HDP>(src, r0, p, lane));
+    mma_bf16(acc[2 * p], a, b[0], b[1]);
+    mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+  }
+}
+
+// out rows r0 + g, r0 + g + 8 (those < L) of the accumulator, times mul
+template <int HD, int HDP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[HDP / 8][4], int r0,
+                                           int L, float mul, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      if (r < L)
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * HD + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
+    }
+  }
+}
+
+// Words of a warp's scratch for the flat keep bits of 16 query rows: the
+// draw fills whole 128-bit groups, and the conversion reads one word past
+// the last bit of the last row's padded keys
+__host__ __device__ __forceinline__ int scratch_words(int L) { return 4 * (((16 * L + 3) / 4 + 31) / 32) + 3; }
+
+// The keep mask of query rows i0 .. i0 + 15, drawn by one warp: bits
+// F = (i - i0)*L + j + d of the warp's scratch, d = e0 % 4 for the rows'
+// first element e0, so that Philox counter e0 / 4 + u (or 32 injected
+// bytes a ballot) fills bits 4u .. 4u + 3; then converted into one byte a
+// lane for each 16 x 16 tile (I = i0 / 16, J): byte g + 8t holds pass A's
+// lane (g, t) elements, keep(i0 + g + 8c, 16J + 2t + a + 8b) in bit
+// 4c + 2b + a. Rows and keys at index L or beyond keep nothing.
+template <int MODE>
+__device__ __forceinline__ void draw_tile_row(uint8_t* ktile, uint32_t* sc, const uint8_t* __restrict__ bits,
+                                              uint64_t e0, int I, int T, int L, int thresh, uint32_t seed,
+                                              int lane) {
+  const int rows = min(16, L - 16 * I);
+  const int d = static_cast<int>(e0 & 3), nbits = rows * L + d;
+  int filled;
+  if constexpr (MODE == kPhilox) {
+    const int ncnt = (nbits + 3) / 4;
+    for (int u0 = 0; u0 < ncnt; u0 += 32) {
+      const int u = u0 + lane;
+      uint32_t nib = 0u;
+      if (u < ncnt) {
+        const uint4 r = philox((e0 >> 2) + u, seed);
+        // the four low bytes side by side, compared at once: 0xFF where
+        // kept; then byte x's low bit to bit x
+        const uint32_t low = __byte_perm(__byte_perm(r.x, r.y, 0x0040), __byte_perm(r.z, r.w, 0x0040), 0x5410);
+        const uint32_t kept = __vcmpgeu4(low, static_cast<uint32_t>(thresh) * 0x01010101u);
+        nib = ((kept & 0x01010101u) * 0x01020408u) >> 24;
+        // bits F = 4u + x outside [d, nbits): the elements before e0 and
+        // after the last row
+        const int lo = min(max(d - 4 * u, 0), 4), hi = min(max(nbits - 4 * u, 0), 4);
+        nib &= ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+      }
+      // lanes 8m .. 8m + 7 hold the 32 bits of word u0 / 8 + m
+      uint32_t w = nib << (4 * (lane & 7));
+      w |= __shfl_xor_sync(0xffffffffu, w, 1);
+      w |= __shfl_xor_sync(0xffffffffu, w, 2);
+      w |= __shfl_xor_sync(0xffffffffu, w, 4);
+      if ((lane & 7) == 0) sc[u0 / 8 + lane / 8] = w;
+    }
+    filled = 4 * ((ncnt + 31) / 32);
+  } else {
+    filled = (nbits + 31) / 32;
+#pragma unroll 4
+    for (int m = 0; m < filled; ++m) {
+      const int f = 32 * m + lane - d;
+      const unsigned w = __ballot_sync(0xffffffffu, f >= 0 && f < rows * L &&
+                                                         bits[e0 + f] >= static_cast<uint8_t>(thresh));
+      if (lane == 0) sc[m] = w;
+    }
+  }
+  for (int m = filled + lane; m < scratch_words(L); m += 32) sc[m] = 0u;
+  __syncwarp();
+  const int g = lane & 7, t = lane >> 3;
+  for (int J = 0; J < T; ++J) {
+    const int j0 = 16 * J;
+    uint32_t byte = 0u;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int r = g + 8 * c;
+      if (r < rows) {
+        const int F = r * L + j0 + d;
+        uint32_t w = __funnelshift_r(sc[F >> 5], sc[(F >> 5) + 1], F & 31);
+        if (L - j0 < 16) w &= (1u << (L - j0)) - 1u;
+        w >>= 2 * t;
+        byte |= ((w & 3u) | ((w >> 6) & 12u)) << (4 * c);
+      }
+    }
+    ktile[(I * T + J) * 32 + lane] = static_cast<uint8_t>(byte);
+  }
+  __syncwarp();  // the next tile row overwrites sc
+}
+
+// Block (batch, head), kBwdWarps warps; bf16 I/O. See the header.
+template <int HD, int MODE>
+__global__ void __launch_bounds__(kBwdWarps * 32, 16 / kBwdWarps) flash_bwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+    const uint8_t* __restrict__ bits, const __nv_bfloat16* __restrict__ dout,
+    __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int H, int L, float scale, int thresh, float drop_scale, uint32_t seed) {
+  using bf16 = __nv_bfloat16;
+  constexpr int HDP = HD < 16 ? 16 : HD;  // head width padded to one k16 step
+  constexpr int KS = HDP / 16;
+  constexpr bool kPow2 = HD == 16;  // scale = 1/4: q.scale is exact in bf16
+  constexpr float kLog2e = 1.4426950408889634f;
+  static_assert(HD == 8 || HD == 16 || HD == 32, "head width");
+  const int T = (L + 15) / 16, Lp = 16 * T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // raw q
+  bf16* ks = qs + Lp * HDP;
+  bf16* vs = ks + Lp * HDP;
+  bf16* dos = vs + Lp * HDP;
+  bf16* qsc = kPow2 ? qs : dos + Lp * HDP;  // q.scale rounded to bf16
+  float* neg2 = reinterpret_cast<float*>((kPow2 ? dos : qsc) + Lp * HDP);
+  float4* stat = reinterpret_cast<float4*>(neg2 + Lp);  // (m, 1 / denom, t, 0) of each query row
+  uint8_t* ktile = reinterpret_cast<uint8_t*>(stat + Lp);  // T x T tiles of 32 keep bytes
+  uint32_t* scratch = reinterpret_cast<uint32_t*>(ktile + T * T * 32);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const size_t base = static_cast<size_t>(bh) * L * HD;
+  for (int idx = threadIdx.x; idx < Lp * HDP; idx += blockDim.x) {
+    const int r = idx / HDP, c = idx % HDP;
+    const bool in = r < L && c < HD;
+    const size_t gi = base + static_cast<size_t>(r) * HD + c;
+    const int o = swz<HDP>(r, c / 8) + c % 8;
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    const bf16 qv = in ? q[gi] : zero;
+    qs[o] = qv;
+    ks[o] = in ? k[gi] : zero;
+    vs[o] = in ? v[gi] : zero;
+    dos[o] = in ? dout[gi] : zero;
+    if (!kPow2) qsc[o] = __float2bfloat16_rn(__bfloat162float(qv) * scale);
+  }
+  // keys at index L or beyond: -inf, so that their exp is exactly 0
+  for (int j = threadIdx.x; j < Lp; j += blockDim.x)
+    neg2[j] = j >= L ? -INFINITY
+                     : ((mask != nullptr && mask[static_cast<size_t>(b) * L + j]) ? kNeg * kLog2e : 0.f);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const float mul = kPow2 ? scale * kLog2e : kLog2e;  // scores in the log2 domain
+
+  // ---- pass A: a warp per 16-query-row tile, three sweeps over the keys
+  for (int it = warp; it < T; it += kBwdWarps) {
+    const int i0 = 16 * it;
+    // the keep bytes of this tile row, drawn once, by the warp that reads
+    // them here (pass B reads them after the block's barrier)
+    if constexpr (MODE != kKeepAll)
+      draw_tile_row<MODE>(ktile, scratch + warp * scratch_words(L), bits,
+                          (static_cast<uint64_t>(bh) * L + i0) * L, it, T, L, thresh, seed, lane);
+    const uint8_t* krow = ktile + it * T * 32 + g + 8 * t;
+    uint32_t qa[KS][4], da[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldsm_x4(qa[kk], a_addr<HDP>(qsc, i0, kk, lane));
+      ldsm_x4(da[kk], a_addr<HDP>(dos, i0, kk, lane));
+    }
+    // sweep 1: the row max (rows i0 + g and i0 + g + 8 of this lane)
+    float m[2] = {-INFINITY, -INFINITY};
+    for (int j0 = 0; j0 < Lp; j0 += 16) {
+      float s[2][4];
+      tile_scores<HDP>(s, qa, ks, neg2, j0, mul, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        m[0] = fmaxf(m[0], fmaxf(s[n][0], s[n][1]));
+        m[1] = fmaxf(m[1], fmaxf(s[n][2], s[n][3]));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+    }
+    // sweep 2: denom = sum exp(s - m), the pre-dropout sum; t = sum dp.p
+    float den[2] = {0.f, 0.f}, tu[2] = {0.f, 0.f};
+    for (int j0 = 0; j0 < Lp; j0 += 16) {
+      float s[2][4], dp[2][4];
+      tile_scores<HDP>(s, qa, ks, neg2, j0, mul, lane);
+      tile_dp<HDP, MODE>(dp, da, vs, krow, j0, drop_scale, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pu = ex2(s[n][e] - m[e >> 1]);
+          den[e >> 1] += pu;
+          tu[e >> 1] = fmaf(dp[n][e], pu, tu[e >> 1]);
+        }
+      }
+    }
+    float rden[2], tt[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+      den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+      tu[h] += __shfl_xor_sync(0xffffffffu, tu[h], 1);
+      tu[h] += __shfl_xor_sync(0xffffffffu, tu[h], 2);
+      rden[h] = 1.f / den[h];
+      tt[h] = tu[h] * rden[h];
+      if (t == 0) stat[i0 + g + 8 * h] = make_float4(m[h], rden[h], tt[h], 0.f);
+    }
+    // sweep 3: ds = p (dp - t) in bf16, dq += ds.k
+    float acc[HDP / 8][4] = {};
+    for (int j0 = 0; j0 < Lp; j0 += 16) {
+      float s[2][4], dp[2][4];
+      tile_scores<HDP>(s, qa, ks, neg2, j0, mul, lane);
+      tile_dp<HDP, MODE>(dp, da, vs, krow, j0, drop_scale, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          s[n][e] = ex2(s[n][e] - m[h]) * rden[h] * (dp[n][e] - tt[h]);
+        }
+      }
+      uint32_t a[4];
+      pack_a(a, s);
+      tile_acc<HDP>(acc, a, ks, j0, lane);
+    }
+    store_rows<HD, HDP>(dq + base, acc, i0, L, scale, lane);
+  }
+  __syncthreads();
+
+  // ---- pass B: a warp per 16-key tile, one sweep over the queries
+  for (int jt = warp; jt < T; jt += kBwdWarps) {
+    const int j0 = 16 * jt;
+    // pass A's byte 2t + x + 8(g / 2) of tile (i0 / 16, jt) holds this lane's
+    // keep(i0 + 2t + x + 8n, j0 + g + 8h) in bit 4n + 2h + g % 2
+    const uint8_t* kcol = ktile + jt * 32 + 2 * t + 8 * (g >> 1);
+    uint32_t ka[KS][4], va[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldsm_x4(ka[kk], a_addr<HDP>(ks, j0, kk, lane));
+      ldsm_x4(va[kk], a_addr<HDP>(vs, j0, kk, lane));
+    }
+    const float ng[2] = {neg2[j0 + g], neg2[j0 + g + 8]};
+    float dka[HDP / 8][4] = {}, dva[HDP / 8][4] = {};
+    for (int i0 = 0; i0 < Lp; i0 += 16) {
+      // s^T (keys j0 + g, + 8; queries i0 + 8n + 2t, + 1) and dpd^T
+      float s[2][4], dpd[2][4];
+      tile_abt<HDP>(s, ka, qsc, i0, lane);
+      tile_abt<HDP>(dpd, va, dos, i0, lane);
+      uint32_t kb = 0u;
+      if (MODE != kKeepAll) kb = *reinterpret_cast<const uint16_t*>(kcol + i0 * T * 2) >> (g & 1);
+      float pd[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float4 st = stat[i0 + 8 * n + 2 * t + x];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * h + x;
+            const float p = ex2(fmaf(s[n][e], mul, ng[h]) - st.x) * st.y;
+            float dp = dpd[n][e], pv = p;
+            if (MODE != kKeepAll) {
+              const float keep = (kb >> (8 * x + 4 * n + 2 * h)) & 1u ? drop_scale : 0.f;
+              pv = p * keep;
+              dp *= keep;
+            }
+            pd[n][e] = pv;
+            s[n][e] = p * (dp - st.z);
+          }
+        }
+      }
+      uint32_t ap[4], as[4];
+      pack_a(ap, pd);
+      pack_a(as, s);
+      tile_acc<HDP>(dva, ap, dos, i0, lane);
+      tile_acc<HDP>(dka, as, qs, i0, lane);
+    }
+    store_rows<HD, HDP>(dk + base, dka, j0, L, scale, lane);
+    store_rows<HD, HDP>(dv + base, dva, j0, L, 1.f, lane);
+  }
+}
+
 size_t fwd_smem(int L, int hd) {
   return sizeof(float) * (static_cast<size_t>(2) * L * (hd + 1) + L + kWarps * L) + kWarps * L;
 }
@@ -495,6 +948,17 @@ size_t bwd_smem(int L, int hd) {
   const size_t W = (L + 31) / 32;
   return sizeof(float) * (static_cast<size_t>(4) * L * (hd + 1) + 4 * L + 2 * kWarps * L) +
          sizeof(uint32_t) * L * W + kWarps * L;
+}
+
+// flash_bwd_mma_kernel: q, k, v, do (and q.scale unless HD = 16) as
+// (Lp, max(16, HD)) bf16, Lp = L rounded up to 16; the key mask; the row
+// statistics; with dropout, the keep bytes of every 16 x 16 tile and each
+// warp's scratch for drawing them
+size_t bwd_mma_smem(int L, int hd, int mode) {
+  const size_t T = (L + 15) / 16, Lp = 16 * T, hdp = hd < 16 ? 16 : hd;
+  const size_t arrays = hd == 16 ? 4 : 5;
+  const size_t keep = mode == kKeepAll ? 0 : T * T * 32 + sizeof(uint32_t) * kBwdWarps * scratch_words(L);
+  return arrays * Lp * hdp * 2 + Lp * (sizeof(float) + sizeof(float4)) + keep;
 }
 
 template <typename K>
@@ -530,16 +994,28 @@ int launch_fwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32 runs on the FMA kernel, bf16 on the tensor-core kernel (see the header)
 template <typename T, int HD, int MODE>
 int launch_bwd(const Args& a) {
-  const size_t smem = bwd_smem(a.L, HD);
-  auto kernel = flash_bwd_kernel<T, HD, MODE>;
-  if (int err = prepare(kernel, smem)) return err;
-  kernel<<<a.BH, kWarps * 32, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<const uint8_t*>(a.bits),
-      static_cast<const T*>(a.dout), static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.H, a.L, a.scale, a.thresh, a.drop_scale, a.seed);
+  if constexpr (std::is_same_v<T, float>) {
+    const size_t smem = bwd_smem(a.L, HD);
+    auto kernel = flash_bwd_kernel<float, HD, MODE>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<a.BH, kWarps * 32, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+        static_cast<const uint8_t*>(a.mask), static_cast<const uint8_t*>(a.bits),
+        static_cast<const float*>(a.dout), static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+        static_cast<float*>(a.dv), a.H, a.L, a.scale, a.thresh, a.drop_scale, a.seed);
+  } else {
+    const size_t smem = bwd_mma_smem(a.L, HD, MODE);
+    auto kernel = flash_bwd_mma_kernel<HD, MODE>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<a.BH, kBwdWarps * 32, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const uint8_t*>(a.mask), static_cast<const uint8_t*>(a.bits),
+        static_cast<const T*>(a.dout), static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+        a.H, a.L, a.scale, a.thresh, a.drop_scale, a.seed);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,6 +24,10 @@ Entry points:
   autograd function over the injected-bits kernels (K4b), the replay target
   (pass ``keep * 255`` to reproduce a keep decision exactly).
 
+The bf16 backward kernel runs its products on the tensor cores, the f32
+one on the FMA units (``csrc/flash_attention.cu`` says why); both are held
+to ``flash_attention_backward_reference``.
+
 Each launches its kernel on CUDA tensors and runs the plain versions
 ``flash_attention_reference`` / ``flash_attention_backward_reference`` on
 CPU tensors; any other device raises. ``flash_attention(...,

@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero before the result line:
    shapes its path gives it, with kernel, plain, bound and (where one
    PyTorch call computes the same function) library times: K1, K2, K3f as
    the serving path runs them; K4 forward and backward on injected bits in
-   f32 and bf16; K4's Philox bits against their twin bit for bit, the
+   f32 and bf16, at 16-row tile tails (L = 1, 17, 33) and full tiles, and
+   at head widths 8, 16 and 32; the bf16 backward's HMMA (tensor-core)
+   instructions in the SASS of each of its instantiations and none in the
+   f32 backward's; K4's Philox bits against their twin bit for bit, the
    Philox kernels against the bits kernels fed the same keep mask, and the
    keep rate over the train shape; K3b at every SpectraNet stage; K4x, the
    forward ablation ladder: every rung against its plain version in f32
@@ -46,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import re
 import shutil
 import sys
 import time
@@ -118,10 +122,25 @@ def device_and_build() -> str:
     kernel.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {', '.join(kernel.SOURCES)}")
     for name, text in kernel.build_log.items():
+        fn, spill = "", ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                fn = _short_kernel_name(entry.group(1))
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                log(f"  nvcc[{name}] {fn}: {line.strip().removeprefix('ptxas info    : ')}; {spill}")
+            elif "error" in line.lower():
                 log(f"  nvcc[{name}] {line.strip()}")
     return card
+
+
+def _short_kernel_name(mangled: str) -> str:
+    """A kernel's mangled name without its namespace and parameter list,
+    e.g. ``flash_bwd_mma_kernelILi16ELi1`` for flash_bwd_mma_kernel<16, 1>."""
+    m = re.search(r"_cu_[0-9a-f]{8}\d+(.*?)E+v", mangled)
+    return m.group(1) if m else mangled
 
 
 # ------------------------------------------------------------- phase 2
@@ -285,22 +304,32 @@ def _attn_inputs(rng, B, L, dtype, dev, H=HEADS, hd=HEAD_DIM):
     return q, k, v, do, mask
 
 
-def check_flash_bits(rng, dev, B: int = 64) -> dict:
-    """K4b: forward and backward on random u8 bits, kernel vs plain twin.
-    f32: out <= 1e-5 abs, dq/dk/dv <= 1e-4 * max(1, |g|) (the backward sums
-    258 products in another order). bf16: <= 2e-2 * max(1, |plain|): both
-    versions round the same f32 intermediates (P, pd, ds) to bf16, and
-    values whose f32 results differ in the last bits may land one bf16
-    step (2^-8 relative) apart."""
+# (B, L, hd) of the K4b checks: the train head width at tile tails (L = 1,
+# 17, 33: one or two rows past a 16-row tile) and full tiles; hd 8 (one
+# k16 step, half padding) and 32 (two k16 steps) at a tail and at L = 258
+FLASH_BITS_CASES = tuple((64, L, HEAD_DIM) for L in (1, 17, 33, 64, TRAIN_L)) + tuple(
+    (8, L, hd) for hd in (8, 32) for L in (17, TRAIN_L))
+
+
+def check_flash_bits(rng, dev) -> dict:
+    """K4b: forward and backward on random u8 bits, kernel vs plain twin, at
+    ``FLASH_BITS_CASES``. f32: out <= 1e-5 abs, dq/dk/dv <= 1e-4 * max(1,
+    |g|) (the backward sums up to 258 products in another order). bf16:
+    <= 2e-2 * max(1, |plain|): both versions round the same f32
+    intermediates (P, pd, ds) to bf16, and values whose f32 results differ
+    in the last bits may land one bf16 step (2^-8 relative) apart. Batch row
+    0 has every key masked: its rows take the uniform softmax of the plain
+    version (all scores -1e9)."""
     import torch
 
     from applecider_tpu_torch.ops import flash_attention as fa
 
     thresh, _ = fa._drop_consts(RATE)
     errs = {}
-    for L in (64, TRAIN_L):
+    for B, L, hd in FLASH_BITS_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, do, mask = _attn_inputs(rng, B, L, dtype, dev)
+            q, k, v, do, mask = _attn_inputs(rng, B, L, dtype, dev, hd=hd)
+            mask[0] = True
             bits = torch.from_numpy(rng.integers(0, 256, (B, HEADS, L, L), dtype=np.uint8)).to(dev)
             keep = bits >= thresh
             out = fa.flash_forward(q, k, v, mask, RATE, bits=bits)
@@ -315,12 +344,12 @@ def check_flash_bits(rng, dev, B: int = 64) -> dict:
                 e, ok = _rel_ok(g, w, 1e-4 if f32 else 2e-2)
                 e_g, ok_g = max(e_g, e), ok_g and ok
             dname = "float32" if f32 else "bfloat16"
-            log(f"K4b flash bits B={B} H={HEADS} L={L} {dname}: fwd max|d|={e_out:.3g} "
+            log(f"K4b flash bits B={B} H={HEADS} L={L} hd={hd} {dname}: fwd max|d|={e_out:.3g} "
                 f"bwd max|d|={e_g:.3g} ({'<= 1e-5 / 1e-4*max(1,|g|)' if f32 else '<= 2e-2*max(1,|plain|)'}) "
                 f"{'OK' if ok_out and ok_g else 'FAIL'}")
             if not (ok_out and ok_g):
-                raise SystemExit(f"K4b disagrees with its plain version at L={L} {dname}")
-            errs[(L, dname)] = (e_out, e_g)
+                raise SystemExit(f"K4b disagrees with its plain version at L={L} hd={hd} {dname}")
+            errs[(L, hd, dname)] = (e_out, e_g)
             del q, k, v, do, bits, keep, out, want, grads, wgrads
     return errs
 
@@ -365,10 +394,16 @@ def check_flash_prng(rng, dev, B: int = 64) -> dict:
     return {"keep_fraction": frac, "seed_differ": differ}
 
 
+# K4a's bf16 backward before it moved to the tensor cores (chip_smoke,
+# NVIDIA H100 80GB HBM3 at 700 W)
+FLASH_BWD_EARLIER_MS = 5.3990
+
+
 def time_flash(rng, dev) -> tuple[dict, dict]:
     """K4 forward and backward at the train shape in bf16 (Philox): kernel,
     plain twin on the same inputs, SDPA with dropout 0.4 as the library
-    yardstick, and the bounds."""
+    yardstick, and the bounds; the backward also at rate 0 (keep-all), so
+    that Philox - keep-all is the draw's cost inside it."""
     import torch
     import torch.nn.functional as F
 
@@ -380,6 +415,7 @@ def time_flash(rng, dev) -> tuple[dict, dict]:
     seed = 7
     ms_f = time_ms(lambda: fa.flash_forward(q, k, v, mask, RATE, seed=seed))
     ms_b = time_ms(lambda: fa.flash_backward(q, k, v, mask, RATE, do, seed=seed))
+    ms_b0 = time_ms(lambda: fa.flash_backward(q, k, v, mask, 0.0, do, seed=seed))
 
     def plain_fwd():
         keep = fa.dropout_bits_reference(seed, B, H, L, device=dev) >= thresh
@@ -403,8 +439,9 @@ def time_flash(rng, dev) -> tuple[dict, dict]:
     shape = f"B={B} H={H} L={L} hd={hd} rate={RATE}"
     log(f"K4a fwd {shape} bf16: kernel {ms_f:.4f} ms, plain {ms_pf:.4f} ms, "
         f"sdpa(dropout) {ms_lf:.4f} ms, bound {fb:.5f} ms ({fby})")
-    log(f"K4a bwd {shape} bf16: kernel {ms_b:.4f} ms, plain {ms_pb:.4f} ms, "
-        f"sdpa(dropout) backward {ms_lb:.4f} ms, bound {bb:.5f} ms ({bby})")
+    log(f"K4a bwd {shape} bf16: kernel {ms_b:.4f} ms (earlier {FLASH_BWD_EARLIER_MS:.4f}), "
+        f"plain {ms_pb:.4f} ms, sdpa(dropout) backward {ms_lb:.4f} ms, bound {bb:.5f} ms ({bby}); "
+        f"at rate 0 (keep-all) {ms_b0:.4f} ms: the draw costs {ms_b - ms_b0:.4f} ms")
 
     # K4b: the same kernels reading injected bits, (B, H, L, L) u8 more to read
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -428,7 +465,8 @@ def time_flash(rng, dev) -> tuple[dict, dict]:
     fwd = dict(name="flash_attention_fwd", replaces="applecider_tpu/ops/flash_attention.py:162",
                ms=ms_f, plain_ms=ms_pf, bound_ms=fb, bound_by=fby, library_ms=ms_lf, **common)
     bwd = dict(name="flash_attention_bwd", replaces="applecider_tpu/ops/flash_attention.py:200",
-               ms=ms_b, plain_ms=ms_pb, bound_ms=bb, bound_by=bby, library_ms=ms_lb, **common)
+               ms=ms_b, earlier_ms=FLASH_BWD_EARLIER_MS, keep_all_ms=ms_b0, plain_ms=ms_pb,
+               bound_ms=bb, bound_by=bby, library_ms=ms_lb, **common)
     return fwd, bwd
 
 
@@ -514,6 +552,18 @@ def check_flash_ladder(rng, dev, B: int = 64) -> dict:
     return errs
 
 
+def _flash_sass() -> str:
+    """``cuobjdump -sass`` of the built flash_attention library."""
+    import os
+    import subprocess
+
+    from applecider_tpu_torch.ops import kernel
+
+    cuobjdump = os.path.join(os.path.dirname(kernel._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(kernel._library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+
+
 def check_draw_in_sass() -> None:
     """K4x's ``prng_only_no_apply`` must keep the Philox draw that its output
     never uses. In the SASS of the bf16, hd = 16 forward instantiations
@@ -521,15 +571,7 @@ def check_draw_in_sass() -> None:
     (0xD2511F53, 0xCD9E8D57, which SASS may print as the signed immediates
     -0x2daee0ad, -0x326172a9) must be there in kDrawOnly and kPhilox, and
     absent from kKeepAll, which draws nothing."""
-    import os
-    import re
-    import subprocess
-
-    from applecider_tpu_torch.ops import kernel
-
-    cuobjdump = os.path.join(os.path.dirname(kernel._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(kernel._library_path("flash_attention"))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
+    sass = _flash_sass()
     multipliers = ("0xd2511f53", "0xcd9e8d57", "-0x2daee0ad", "-0x326172a9")
     lines = {}
     for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
@@ -542,6 +584,27 @@ def check_draw_in_sass() -> None:
         f"{philox}, kDrawOnly {draw} (kDrawOnly and kPhilox > 0, kKeepAll 0 required)")
     if not (draw and philox and keep_all == 0):
         raise SystemExit("K4x prng_only_no_apply lost its Philox draw, or the SASS was not found")
+
+
+def check_bwd_on_tensor_cores() -> None:
+    """K4's bf16 backward must run its products on the tensor cores and the
+    f32 backward on the FMA units: in the SASS of every backward
+    instantiation (``cuobjdump -sass``), the bf16 ones (flash_bwd_mma_kernel,
+    3 head widths x 3 keep sources) must hold HMMA instructions and the
+    f32 ones (flash_bwd_kernel<float>) none."""
+    sass = _flash_sass()
+    hmma = {}
+    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        m = re.search(r"(flash_bwd_mma_kernelI|flash_bwd_kernelIf)Li(\d+)ELi(\d)E", name)
+        if m:
+            kind = "bf16" if m.group(1) == "flash_bwd_mma_kernelI" else "f32"
+            hmma[f"{kind} hd={m.group(2)} mode={m.group(3)}"] = len(re.findall(r"\bHMMA\.", body))
+    bf16 = {key: n for key, n in hmma.items() if key.startswith("bf16")}
+    f32 = {key: n for key, n in hmma.items() if key.startswith("f32")}
+    log(f"K4 backward SASS, HMMA instructions per (dtype, hd, keep mode): {hmma} "
+        f"(> 0 in all 9 bf16 and 0 in all 9 f32 required)")
+    if len(bf16) != 9 or len(f32) != 9 or not all(bf16.values()) or any(f32.values()):
+        raise SystemExit("K4's bf16 backward left the tensor cores, or its f32 backward moved onto them")
 
 
 def time_flash_ladder(dev) -> tuple[list, dict]:
@@ -636,10 +699,11 @@ def check_kernels() -> tuple[list[dict], dict]:
     errs = check_flash_bits(rng, dev)
     check_flash_prng(rng, dev)
     fwd, bwd = time_flash(rng, dev)
-    fwd["max_abs_err"], bwd["max_abs_err"] = errs[(TRAIN_L, "bfloat16")]
+    fwd["max_abs_err"], bwd["max_abs_err"] = errs[(TRAIN_L, HEAD_DIM, "bfloat16")]
     records += [check_ln_gelu_bwd(rng, dev), fwd, bwd]
     ladder_errs = check_flash_ladder(rng, dev)
     check_draw_in_sass()
+    check_bwd_on_tensor_cores()
     ladder, ladder_launches = time_flash_ladder(dev)
     for r in ladder:
         r["max_abs_err"] = ladder_errs[r["name"].removeprefix(LADDER_PREFIX)]

@@ -59,13 +59,28 @@ def test_plain_forward_matches_pallas_bits(rng, rate):
                                rtol=0, atol=1e-5)
 
 
+# (L, hd): the tensor-core backward's 16-row tiles with a tail of 1 and of
+# 1 + 16 rows, one k16 step padded (hd 8) and two (hd 32)
 @pytest.mark.parametrize("rate", [0.0, 0.25])
-def test_plain_gradients_match_pallas_bits(rng, rate):
-    q, k, v, pad, bits, tgt = _inputs(rng, B=2, H=2, L=16, hd=8)
+@pytest.mark.parametrize("L,hd", [(16, 8), (17, 16), (33, 16), (24, 32)])
+def test_plain_gradients_match_pallas_bits(rng, rate, L, hd):
+    q, k, v, pad, bits, tgt = _inputs(rng, B=2, H=2, L=L, hd=hd)
     _, want = _jax(q, k, v, pad, bits, rate, tgt)
     _, got = _port(q, k, v, pad, bits, rate, tgt)
     for a, b, name in zip(got, want, "qkv"):
         np.testing.assert_allclose(a, b, atol=2e-4, rtol=1e-4, err_msg=f"d{name}")
+
+
+def test_plain_bf16_gradients_match_pallas_bits_bf16(rng):
+    """The yardstick of the card's bf16 backward against the Pallas kernel
+    in bf16 at a tile tail (L = 17): both round P, pd, dO and ds to bf16
+    before their products, so the gradients agree within a bf16 step or
+    two, 2e-2 * max(1, |g|)."""
+    q, k, v, pad, bits, tgt = _inputs(rng, B=2, H=2, L=17, hd=16)
+    _, want = _jax(q, k, v, pad, bits, 0.25, tgt, dtype=jnp.bfloat16)
+    _, got = _port(q, k, v, pad, bits, 0.25, tgt, dtype=torch.bfloat16)
+    for a, b, name in zip(got, want, "qkv"):
+        assert (np.abs(a - b) <= 2e-2 * np.maximum(1.0, np.abs(b))).all(), f"d{name}"
 
 
 def test_plain_bf16_matches_f32_kernel(rng):
