@@ -520,10 +520,9 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_kernel(
 
 // ---- bf16 backward on the tensor cores (see the header)
 
-#ifndef AC_BWD_WARPS
-#define AC_BWD_WARPS 4
-#endif
-constexpr int kBwdWarps = AC_BWD_WARPS;
+// four warps a block: four blocks fit an SM, and 8 warps measured slower
+// (PERF.md)
+constexpr int kBwdWarps = 4;
 
 // 16 x 16 bf16 fragments from shared memory: four 8 x 8 matrices, lane l
 // giving the address of row l % 8 of matrix l / 8. .trans transposes each.

@@ -47,7 +47,6 @@ MODULES = [
     "applecider_tpu_torch.tools.profile_serving",
     "applecider_tpu_torch.tools.profile_training",
     "applecider_tpu_torch.tools.flash_microab",
-    "applecider_tpu_torch.tools.flash_bwd_warps",
 ]
 
 
