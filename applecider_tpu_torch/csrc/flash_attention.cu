@@ -37,19 +37,34 @@
 // at 3.35 TB/s (its 8.7 GFLOP take 9 us on the bf16 tensor cores); the
 // backward moves q, k, v, do, dq, dk and dv once, 119 MB, about 36 us. The
 // (L, L) scores, probabilities and the 136 M dropout bytes a step never
-// touch device memory. The forward and the f32 backward run every product
-// on the f32 FMA units, so arithmetic, not memory, is their own limit. The
-// bf16 backward runs its products on the tensor cores (mma.sync m16n8k16,
-// bf16 operands, f32 accumulation: head width 16 is one k-step): 10
-// products of 2 * 16 * L^2 flops a head (4 x S, 3 x dO.V^T, dq, dk, dv),
-// 44 GFLOP a launch, ~0.05 ms at the dense rate; its own limit is the
-// elementwise work between them (exp, keep, ds) and the Philox draw.
+// touch device memory. In bf16 both directions run their products on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulation: head
+// width 16 is one k-step), so their own limit is the elementwise work
+// between the products (exp, keep, ds) and the Philox draw: the forward's
+// 136 M exponentials take ~35 us on the SFUs, its 34 M Philox counters a
+// multiple of that on the integer units; the backward's 10 products of 2 *
+// 16 * L^2 flops a head (4 x S, 3 x dO.V^T, dq, dk, dv), 44 GFLOP a launch,
+// take ~0.05 ms at the dense rate. In f32 both run on the FMA units (TF32
+// would miss the f32 limits), so arithmetic, not memory, is their limit.
 //
 // Design, one block per (batch, head):
-//   forward (eight warps): K and V of the head in f32 shared memory (rows
-//   padded to HD + 1 words: no bank conflicts), as K2. Each warp owns query
-//   rows i = warp, warp + 8, ...: scores of keys j = lane, lane + 32, ...
-//   into a per-warp shared row, max and sum by shuffles, then the keep
+//   forward, bf16 (flash_fwd_mma_kernel, kFwdWarps = 4 warps): the forward
+//   tile routine of mma.cuh, which K2 shares: K and V in swizzled bf16
+//   shared memory with the key mask; a warp per 16-query-row tile, q.scale
+//   rounded to bf16 straight into A fragments, two sweeps over the keys
+//   (the row max, then exp, the pre-dropout sum, the keep bits and P.V by
+//   mma), so P is rounded relative to the final row max as in the plain
+//   version. Before its sweeps the warp draws the keep mask of its 16 rows
+//   with draw_tile_row into its scratch and the tile bytes, as pass A of
+//   the backward does, so kPhilox and kBits differ only in
+//   the fill and the Philox -> bits replay stays exact; with keep_out it
+//   writes the rows' 0/1 bytes from its scratch bits. kKeepAll allocates no
+//   keep bytes and draws nothing.
+//   forward, f32 (flash_fwd_kernel, eight warps), and every K4x rung in
+//   both dtypes: K and V of the head in f32 shared memory (rows padded to
+//   HD + 1 words: no bank conflicts), as K2's f32 kernel. Each warp owns
+//   query rows i = warp, warp + 8, ...: scores of keys j = lane, lane + 32,
+//   ... into a per-warp shared row, max and sum by shuffles, then the keep
 //   decision for the row (Philox: each lane draws one counter, four bytes,
 //   for the elements of the row it covers), then P.V split over (HD lanes)
 //   x (32 / HD key groups).
@@ -93,12 +108,13 @@
 //   is written once, in a fixed summation order.
 //
 // K4x, the forward ablation ladder (replaces scripts/tpu_flash_microab.py
-// _fwd_kernel and _fwd_kernel_batched, Pallas, TPU): the same forward with
+// _fwd_kernel and _fwd_kernel_batched, Pallas, TPU): the FMA forward with
 // stages taken out, to split its time between them on the card. Its rungs
-// are instantiations of flash_fwd_kernel, so the ladder times the kernel
-// the training step runs: `full` is kPhilox and `no_prng` kKeepAll, and
-// two forward-only modes are added as compile-time branches that leave
-// those instantiations as they were:
+// are instantiations of flash_fwd_kernel in both dtypes: `full` is kPhilox
+// and `no_prng` kKeepAll, the f32 training kernel's own instantiations (in
+// bf16 the training step runs flash_fwd_mma_kernel instead), and two
+// forward-only modes are added as compile-time branches that leave those
+// instantiations as they were:
 //   kDrawOnly (`prng_only_no_apply`): kKeepAll's output, and the row's
 //   Philox words drawn but not applied; each lane XORs the words it draws
 //   and writes the XOR to keep_out only if keep_out is not null, which the
@@ -115,8 +131,11 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using namespace ac::mma;
 
 constexpr int kWarps = 8;
 constexpr float kNeg = -1e9f;
@@ -524,108 +543,6 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_kernel(
 // (PERF.md)
 constexpr int kBwdWarps = 4;
 
-// 16 x 16 bf16 fragments from shared memory: four 8 x 8 matrices, lane l
-// giving the address of row l % 8 of matrix l / 8. .trans transposes each.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// d += a.b: m16n8k16, bf16 operands, f32 accumulation. Lane l = 4g + t
-// holds a = {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)},
-// b = {(k 2t..2t+1, n g), (k 2t+8.., n g)} and d = {(g, 2t), (g, 2t+1),
-// (g+8, 2t), (g+8, 2t+1)}: the d of two n8 tiles side by side, packed
-// pairwise, is the a of one k16 step.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// a-fragment of the k16 step made of two n8 accumulator tiles
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[2][4]) {
-  a[0] = pack_bf16(c[0][0], c[0][1]);
-  a[1] = pack_bf16(c[0][2], c[0][3]);
-  a[2] = pack_bf16(c[1][0], c[1][1]);
-  a[3] = pack_bf16(c[1][2], c[1][3]);
-}
-
-// Row r, 16-byte chunk ch of a (rows, HDP) bf16 array: the chunk is XORed
-// with a function of r so that the eight rows one ldmatrix reads fall in
-// distinct banks (rows of 32 or 64 bytes).
-template <int HDP>
-__device__ __forceinline__ int swz(int r, int ch) {
-  constexpr int kChunks = HDP / 8;
-  return r * HDP + 8 * (ch ^ ((r / (8 / kChunks)) % kChunks));
-}
-
-// Addresses lane l gives ldmatrix for the 16-row tile at row r0: the
-// a-fragment (rows split over matrices 0/1, chunks over 2/3) of k-step ks;
-// with .trans, on a tile whose 16 rows are k, the b-fragments {b0, b1} of
-// columns 16ks..16ks+7, then of 16ks+8..16ks+15.
-template <int HDP>
-__device__ __forceinline__ const __nv_bfloat16* a_addr(const __nv_bfloat16* base, int r0, int ks, int lane) {
-  return base + swz<HDP>(r0 + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * ks + (lane >> 4));
-}
-// b-fragments of two n8 tiles (the tile's rows are n; chunks over 0/1, n
-// tiles over 2/3) of k-step ks: {b0, b1} of rows r0..r0+7, then of r0+8..
-template <int HDP>
-__device__ __forceinline__ const __nv_bfloat16* b_addr(const __nv_bfloat16* base, int r0, int ks, int lane) {
-  return base + swz<HDP>(r0 + (lane & 7) + ((lane >> 4) & 1) * 8, 2 * ks + ((lane >> 3) & 1));
-}
-// 2^x on the SFU (ex2.approx: 2^-22 relative error)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// c = a.src^T of a 16 x 16 tile: a, 16 rows x HDP, in registers; src
-// rows r0..r0+15 in shared memory
-template <int HDP>
-__device__ __forceinline__ void tile_abt(float (&c)[2][4], const uint32_t (&a)[HDP / 16][4],
-                                         const __nv_bfloat16* src, int r0, int lane) {
-#pragma unroll
-  for (int n = 0; n < 2; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-    uint32_t b[4];
-    ldsm_x4(b, b_addr<HDP>(src, r0, kk, lane));
-    mma_bf16(c[0], a[kk], b[0], b[1]);
-    mma_bf16(c[1], a[kk], b[2], b[3]);
-  }
-}
-
-// Scores of the 16 x 16 tile at (the 16 rows of qa, keys j0..j0+15) in the
-// log2 domain: (qa.ks^T) * mul + neg2, with neg2 the key mask times log2(e)
-template <int HDP>
-__device__ __forceinline__ void tile_scores(float (&s)[2][4], const uint32_t (&qa)[HDP / 16][4],
-                                            const __nv_bfloat16* ks, const float* neg2, int j0,
-                                            float mul, int lane) {
-  tile_abt<HDP>(s, qa, ks, j0, lane);
-  const int t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-    const float2 ng = *reinterpret_cast<const float2*>(neg2 + j0 + 8 * n + 2 * t);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = fmaf(s[n][e], mul, (e & 1) ? ng.y : ng.x);
-  }
-}
-
 // dp = keep * (da.vs^T) * drop_scale of the 16 x 16 tile at keys j0, its
 // keep bits in byte krow[2 * j0] (pass A's layout, see draw_tile_row)
 template <int HDP, int MODE>
@@ -639,36 +556,6 @@ __device__ __forceinline__ void tile_dp(float (&dp)[2][4], const uint32_t (&da)[
     for (int n = 0; n < 2; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[n][e] *= (kb >> (4 * (e >> 1) + 2 * n + (e & 1))) & 1u ? drop_scale : 0.f;
-    }
-  }
-}
-
-// acc (16 rows x HDP) += a (16 x 16, k = rows r0..r0+15 of src) . src
-template <int HDP>
-__device__ __forceinline__ void tile_acc(float (&acc)[HDP / 8][4], const uint32_t (&a)[4],
-                                         const __nv_bfloat16* src, int r0, int lane) {
-#pragma unroll
-  for (int p = 0; p < HDP / 16; ++p) {
-    uint32_t b[4];
-    ldsm_x4_t(b, a_addr<HDP>(src, r0, p, lane));
-    mma_bf16(acc[2 * p], a, b[0], b[1]);
-    mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
-  }
-}
-
-// out rows r0 + g, r0 + g + 8 (those < L) of the accumulator, times mul
-template <int HD, int HDP>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[HDP / 8][4], int r0,
-                                           int L, float mul, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + g + 8 * h;
-      if (r < L)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * HD + 8 * n + 2 * t) =
-            __floats2bfloat162_rn(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
     }
   }
 }
@@ -934,6 +821,55 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 16 / kBwdWarps) flash_bwd_mma_
   }
 }
 
+// Forward, bf16 I/O, on the tensor cores. Block (batch, head), kFwdWarps
+// warps, a warp per 16-query-row tile: the tile row's keep bytes drawn as
+// pass A of the backward draws them (draw_tile_row), the keep mask
+// exported from the warp's scratch bits when keep_out is not null, then
+// attend_rows (mma.cuh) on q.scale rounded to bf16. See the header.
+constexpr int kFwdWarps = 4;
+
+template <int HD, int MODE>
+__global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+    const uint8_t* __restrict__ bits, __nv_bfloat16* __restrict__ out, uint8_t* __restrict__ keep_out,
+    int H, int L, float scale, int thresh, float drop_scale, uint32_t seed) {
+  static_assert(HD == 8 || HD == 16 || HD == 32, "head width");
+  constexpr bool kDrop = MODE != kKeepAll;
+  const int T = (L + 15) / 16, Lp = 16 * T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + Lp * padded_width(HD);
+  float* neg2 = reinterpret_cast<float*>(vs + Lp * padded_width(HD));
+  uint32_t* scratch = reinterpret_cast<uint32_t*>(neg2 + Lp);  // per warp: scratch_words(L)
+  uint8_t* ktile = reinterpret_cast<uint8_t*>(scratch + kFwdWarps * scratch_words(L));  // T x T tiles of 32
+
+  const int bh = blockIdx.x;
+  const size_t base = static_cast<size_t>(bh) * L * HD;
+  load_kv<HD>(ks, vs, neg2, k + base, v + base, mask != nullptr ? mask + static_cast<size_t>(bh / H) * L : nullptr,
+              L);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint32_t* sc = scratch + warp * scratch_words(L);
+  for (int it = warp; it < T; it += kFwdWarps) {
+    const int i0 = 16 * it;
+    const uint64_t e0 = (static_cast<uint64_t>(bh) * L + i0) * L;
+    if constexpr (kDrop) draw_tile_row<MODE>(ktile, sc, bits, e0, it, T, L, thresh, seed, lane);
+    if (keep_out != nullptr) {
+      // element f = (i - i0) * L + j of the tile row is bit f + e0 % 4 of sc
+      const int d = static_cast<int>(e0 & 3);
+      for (int f = lane; f < min(16, L - i0) * L; f += 32)
+        keep_out[e0 + f] = kDrop ? (sc[(f + d) >> 5] >> ((f + d) & 31)) & 1u : 1u;
+      __syncwarp();  // the next tile row's draw overwrites sc
+    }
+    uint32_t qa[padded_width(HD) / 16][4];
+    load_q<HD>(qa, q + base, i0, L, scale, lane);
+    attend_rows<HD, kDrop>(out + base, qa, ks, vs, neg2, ktile + it * T * 32 + (lane >> 2) + 8 * (lane & 3), i0,
+                           L, kLog2e, drop_scale, lane);
+  }
+}
+
 size_t fwd_smem(int L, int hd) {
   return sizeof(float) * (static_cast<size_t>(2) * L * (hd + 1) + L + kWarps * L) + kWarps * L;
 }
@@ -960,6 +896,14 @@ size_t bwd_mma_smem(int L, int hd, int mode) {
   return arrays * Lp * hdp * 2 + Lp * (sizeof(float) + sizeof(float4)) + keep;
 }
 
+// flash_fwd_mma_kernel: K and V, the key mask (kv_smem); with dropout, each
+// warp's scratch and the keep bytes of every 16 x 16 tile
+size_t fwd_mma_smem(int L, int hd, int mode) {
+  const size_t T = (L + 15) / 16;
+  const size_t keep = mode == kKeepAll ? 0 : sizeof(uint32_t) * kFwdWarps * scratch_words(L) + T * T * 32;
+  return kv_smem(L, hd) + keep;
+}
+
 template <typename K>
 int prepare(K kernel, size_t smem) {
   if (smem > 48 * 1024) {
@@ -981,8 +925,9 @@ struct Args {
   cudaStream_t stream;
 };
 
+// the FMA forward: f32, and every K4x rung in both dtypes
 template <typename T, int HD, int MODE>
-int launch_fwd(const Args& a) {
+int launch_fwd_fma(const Args& a) {
   const size_t smem = fwd_smem(a.L, HD);
   auto kernel = flash_fwd_kernel<T, HD, MODE>;
   if (int err = prepare(kernel, smem)) return err;
@@ -991,6 +936,24 @@ int launch_fwd(const Args& a) {
       static_cast<const uint8_t*>(a.mask), static_cast<const uint8_t*>(a.bits), static_cast<T*>(a.out),
       static_cast<uint8_t*>(a.keep_out), a.H, a.L, a.scale, a.thresh, a.drop_scale, a.seed);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ac_flash_fwd: f32 runs on the FMA kernel, bf16 on the tensor-core kernel
+// (see the header)
+template <typename T, int HD, int MODE>
+int launch_fwd(const Args& a) {
+  if constexpr (std::is_same_v<T, float>) {
+    return launch_fwd_fma<float, HD, MODE>(a);
+  } else {
+    const size_t smem = fwd_mma_smem(a.L, HD, MODE);
+    auto kernel = flash_fwd_mma_kernel<HD, MODE>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<a.BH, kFwdWarps * 32, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const uint8_t*>(a.mask), static_cast<const uint8_t*>(a.bits), static_cast<T*>(a.out),
+        static_cast<uint8_t*>(a.keep_out), a.H, a.L, a.scale, a.thresh, a.drop_scale, a.seed);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // f32 runs on the FMA kernel, bf16 on the tensor-core kernel (see the header)
@@ -1042,10 +1005,10 @@ int launch_ablate(const Args& a, int mode, int pair_block) {
   if (pair_block > 0) return mode == kKeepAll ? launch_pairs<T, HD>(a, pair_block)
                                               : static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case kKeepAll: return launch_fwd<T, HD, kKeepAll>(a);
-    case kPhilox: return launch_fwd<T, HD, kPhilox>(a);
-    case kDrawOnly: return launch_fwd<T, HD, kDrawOnly>(a);
-    case kMatmulOnly: return launch_fwd<T, HD, kMatmulOnly>(a);
+    case kKeepAll: return launch_fwd_fma<T, HD, kKeepAll>(a);
+    case kPhilox: return launch_fwd_fma<T, HD, kPhilox>(a);
+    case kDrawOnly: return launch_fwd_fma<T, HD, kDrawOnly>(a);
+    case kMatmulOnly: return launch_fwd_fma<T, HD, kMatmulOnly>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

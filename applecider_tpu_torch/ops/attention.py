@@ -4,9 +4,12 @@ Counterpart of ``applecider_tpu/ops/attention.py``. ``masked_attention``
 launches the hand-written kernel ``csrc/attention.cu`` on CUDA tensors and
 runs the plain PyTorch version ``masked_attention_reference`` on CPU
 tensors; any other device raises. Both follow the TPU kernel's numerics:
-1/sqrt(hd) folded into q, -1e9 added at padded keys, an f32 softmax with
-max subtraction, the unnormalised P rounded to the I/O dtype before P.V,
-and each row divided by its f32 sum at the end.
+1/sqrt(hd) folded into q in f32, -1e9 added at padded keys, an f32 softmax
+with max subtraction, the unnormalised P rounded to the I/O dtype before
+P.V, and each row divided by its f32 sum at the end. The bf16 kernel runs
+its products on the tensor cores and applies the scale to the f32 scores
+after q.K^T, so the plain version holds it unchanged; the f32 kernel runs on
+the FMA units.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import math
 
 import torch
 
-from applecider_tpu_torch.ops.kernel import CudaKernel, dtype_code, require_cuda
+from applecider_tpu_torch.ops.kernel import CudaKernel, dtype_code, require_aligned, require_cuda
 
 KERNEL = CudaKernel(
     "attention", "ac_masked_attention",
@@ -65,6 +68,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("mask must be contiguous")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q/k/v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        require_aligned(q, k, v)
     out = torch.empty_like(q)
     mask_ptr = None if key_padding_mask is None else key_padding_mask
     KERNEL.launch(dev, q, k, v, mask_ptr, out, B, H, L, hd, 1.0 / math.sqrt(hd), code)

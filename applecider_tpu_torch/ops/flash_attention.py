@@ -24,9 +24,10 @@ Entry points:
   autograd function over the injected-bits kernels (K4b), the replay target
   (pass ``keep * 255`` to reproduce a keep decision exactly).
 
-The bf16 backward kernel runs its products on the tensor cores, the f32
-one on the FMA units (``csrc/flash_attention.cu`` says why); both are held
-to ``flash_attention_backward_reference``.
+The bf16 forward and backward kernels run their products on the tensor
+cores, the f32 ones on the FMA units (``csrc/flash_attention.cu`` says
+why); they are held to ``flash_attention_reference`` and
+``flash_attention_backward_reference``.
 
 Each launches its kernel on CUDA tensors and runs the plain versions
 ``flash_attention_reference`` / ``flash_attention_backward_reference`` on
@@ -44,7 +45,7 @@ import torch
 
 from applecider_tpu_torch.ops.attention import HEAD_DIMS
 from applecider_tpu_torch.ops.dropout import drop_consts
-from applecider_tpu_torch.ops.kernel import CudaKernel, dtype_code, require_cuda
+from applecider_tpu_torch.ops.kernel import CudaKernel, dtype_code, require_aligned, require_cuda
 
 _NEG = -1e9
 
@@ -204,6 +205,8 @@ def flash_forward(q, k, v, key_padding_mask, rate: float, seed: int = 0, bits=No
                    if keep is None else keep.to(torch.uint8))
         return out, keep_u8
     dev = _check(q, k, v, key_padding_mask, bits)
+    if q.dtype == torch.bfloat16:
+        require_aligned(q, k, v)
     B, H, L, hd = q.shape
     if bits is not None and (bits.shape != (B, H, L, L) or bits.dtype != torch.uint8):
         raise ValueError(f"bits must be (B, H, L, L) uint8, got {bits.shape} {bits.dtype}")

@@ -1,12 +1,16 @@
 """K4x: the forward ablation ladder of K4, the training attention.
 
 Counterpart of the kernel half of ``scripts/tpu_flash_microab.py``
-(``_fwd_kernel``, ``_fwd_kernel_batched``). Each rung is K4's forward with
-stages taken out, so that timing the rungs splits the forward's time
-between the products, the softmax, the dropout draw and its application:
+(``_fwd_kernel``, ``_fwd_kernel_batched``). Each rung is K4's FMA forward
+with stages taken out, so that timing the rungs splits that forward's time
+between the products, the softmax, the dropout draw and its application.
+In f32 the rungs are the kernel the training step runs; in bf16 the
+training step runs the tensor-core forward, which the ladder does not
+take apart:
 
-* ``full``: K4a's forward, Philox dropout keyed on ``seed`` (the kernel the
-  training step runs, bit for bit ``flash_attention.flash_forward(seed=)``);
+* ``full``: K4a's FMA forward, Philox dropout keyed on ``seed`` (in f32 bit
+  for bit ``flash_attention.flash_forward(seed=)``; in bf16 the same keep
+  mask, with the products' f32 sums in another order);
 * ``no_prng``: the same without dropout (K4's keep-all forward);
 * ``prng_only_no_apply``: ``no_prng`` plus the row's dropout bits drawn and
   folded in with a zero; its output equals ``no_prng``'s;

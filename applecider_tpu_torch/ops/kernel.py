@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for ``sm_90a``
 into ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout; the
-hash covers the source, the shared header and the flags, so an edited
-source builds anew and an unchanged one is loaded as it is. Every library
+hash covers the source, every shared header (``csrc/*.cuh``) and the flags,
+so an edited source or header builds anew and an unchanged one is loaded as
+it is. Every library
 exports plain C functions that take device pointers, sizes and the CUDA
 stream, launch without synchronising and return ``cudaGetLastError()``.
 
@@ -46,7 +47,9 @@ def _nvcc() -> str:
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -138,3 +141,12 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
     if dev.type != "cuda":
         raise ValueError(f"kernel runs on CUDA tensors, got {dev}")
     return dev
+
+
+def require_aligned(*tensors: torch.Tensor, nbytes: int = 16) -> None:
+    """Raises unless each tensor's data starts on an ``nbytes`` boundary: the
+    bf16 tensor-core kernels load q, k and v in 16-byte chunks."""
+    for t in tensors:
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"kernel takes tensors whose data is {nbytes}-byte aligned; "
+                             f"got an offset of {t.data_ptr() % nbytes} bytes (clone the tensor)")

@@ -20,14 +20,24 @@ def _qkv(rng, B, H, L, hd):
     return [rng.normal(size=(B, H, L, hd)).astype(np.float32) for _ in range(3)]
 
 
+def _mask(rng, B, L, masked):
+    """Random key-padding lengths, batch row 0 with every key padded (the
+    uniform softmax of all-equal -1e9 scores); None when not masked."""
+    if not masked:
+        return None
+    mask = np.arange(L)[None, :] >= rng.integers(1, L + 1, size=B)[:, None]
+    mask[0] = True
+    return mask
+
+
+# (L, hd): the tensor-core kernel's 16-row tiles with a tail of 1, of 1 + 16
+# and of 1 + 2 * 16 rows; one k16 step half padded (hd 8) and two (hd 32)
 @pytest.mark.parametrize("masked", [True, False])
-def test_plain_attention_matches_pallas_kernel(rng, masked):
-    B, H, L, hd = 2, 4, 33, 16
+@pytest.mark.parametrize("L,hd", [(1, 16), (17, 8), (33, 16), (24, 32)])
+def test_plain_attention_matches_pallas_kernel(rng, masked, L, hd):
+    B, H = 2, 4
     q, k, v = _qkv(rng, B, H, L, hd)
-    mask = None
-    if masked:
-        lengths = rng.integers(1, L + 1, size=B)
-        mask = np.arange(L)[None, :] >= lengths[:, None]
+    mask = _mask(rng, B, L, masked)
     want = np.asarray(pallas_masked_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         None if mask is None else jnp.asarray(mask), interpret=True))
@@ -37,6 +47,22 @@ def test_plain_attention_matches_pallas_kernel(rng, masked):
     ref = masked_attention_reference(torch.from_numpy(q), torch.from_numpy(k),
                                      torch.from_numpy(v), tmask)
     assert torch.equal(got, ref)  # the CPU wrapper is the plain version
+
+
+def test_plain_bf16_attention_matches_pallas_bf16(rng):
+    """The yardstick of the card's bf16 kernel against the Pallas kernel in
+    bf16 at a tile tail (L = 17) with a fully masked row: both keep q.scale
+    and the scores in f32 and round P and the output to bf16 once, so they
+    agree within a bf16 step, 2e-2 * max(1, |ref|)."""
+    B, H, L, hd = 2, 4, 17, 16
+    q, k, v = _qkv(rng, B, H, L, hd)
+    mask = _mask(rng, B, L, True)
+    want = np.asarray(pallas_masked_attention(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), jnp.asarray(mask),
+        interpret=True).astype(jnp.float32))
+    got = masked_attention(*(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)),
+                           torch.from_numpy(mask)).float().numpy()
+    assert (np.abs(got - want) <= 2e-2 * np.maximum(1.0, np.abs(want))).all()
 
 
 def _pad_mask(rng, B, L):

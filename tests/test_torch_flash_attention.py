@@ -52,17 +52,21 @@ def _port(q, k, v, pad, bits, rate, tgt=None, dtype=torch.float32):
     return out.float().detach().numpy(), [t.grad.float().numpy() for t in ts]
 
 
+# (L, hd): the tensor-core kernels' 16-row tiles with a tail of 1 and of
+# 1 + 16 rows, one k16 step padded (hd 8) and two (hd 32)
+TILE_CASES = [(16, 8), (17, 16), (33, 16), (24, 32)]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.25])
-def test_plain_forward_matches_pallas_bits(rng, rate):
-    q, k, v, pad, bits, _ = _inputs(rng)
+@pytest.mark.parametrize("L,hd", TILE_CASES)
+def test_plain_forward_matches_pallas_bits(rng, rate, L, hd):
+    q, k, v, pad, bits, _ = _inputs(rng, B=2, H=2, L=L, hd=hd)
     np.testing.assert_allclose(_port(q, k, v, pad, bits, rate), _jax(q, k, v, pad, bits, rate),
                                rtol=0, atol=1e-5)
 
 
-# (L, hd): the tensor-core backward's 16-row tiles with a tail of 1 and of
-# 1 + 16 rows, one k16 step padded (hd 8) and two (hd 32)
 @pytest.mark.parametrize("rate", [0.0, 0.25])
-@pytest.mark.parametrize("L,hd", [(16, 8), (17, 16), (33, 16), (24, 32)])
+@pytest.mark.parametrize("L,hd", TILE_CASES)
 def test_plain_gradients_match_pallas_bits(rng, rate, L, hd):
     q, k, v, pad, bits, tgt = _inputs(rng, B=2, H=2, L=L, hd=hd)
     _, want = _jax(q, k, v, pad, bits, rate, tgt)
