@@ -10,7 +10,8 @@ Counterpart of ``applecider_tpu/ops/ln_gelu.py``. ``ln_gelu`` is a
   ``ln_gelu_backward_reference`` on a CPU tensor: everything is recomputed
   from x in f32, dx comes out in x's dtype, and the kernel's per-block f32
   partial rows of dscale and dbias are summed here with ``torch.sum``, as
-  the JAX package sums its per-block partials outside the kernel.
+  the JAX package sums its per-block partials outside the kernel (one
+  ``torch.sum`` for both). Its launch geometry is ``bwd_geometry(N, C)``.
 
 Any other device raises. ``kernels=False`` selects the plain versions on
 any device (the yardstick ``chip_smoke.py`` compares the path with).
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -27,7 +29,9 @@ from applecider_tpu_torch.ops.kernel import CudaKernel, dtype_code, require_cuda
 
 _SQRT2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
-BWD_ROWS = 64  # rows per block of the backward kernel: one partial row each
+BWD_THREADS = 512  # a block of the backward kernel (csrc/ln_gelu.cu kBwdThreads)
+BWD_CHUNKS = (3, 8)  # the chunk counts a thread can hold (the compiled instantiations)
+BWD_SMS = 132  # SMs of an H100 SXM: the grid is at most one wave of resident blocks
 
 KERNEL = CudaKernel(
     "ln_gelu", "ac_ln_gelu_fwd",
@@ -37,8 +41,53 @@ KERNEL = CudaKernel(
 KERNEL_BWD = CudaKernel(
     "ln_gelu", "ac_ln_gelu_bwd",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
 )
+
+
+class BwdGeometry(NamedTuple):
+    """Launch geometry of K3b: a row group of ``warps`` warps holds a row,
+    each of its threads ``chunks`` vectors of ``vec`` elements; a block of
+    ``BWD_THREADS`` threads holds ``groups`` row groups, and the grid
+    ``blocks`` blocks, one partial row of dscale and dbias each. ``chunks``
+    0 is the wide path: a block is one row group that streams its row from
+    device memory, one element a thread at a time."""
+
+    vec: int
+    warps: int
+    chunks: int
+    blocks: int
+
+    @property
+    def groups(self) -> int:
+        return BWD_THREADS // (32 * self.warps)
+
+
+def bwd_geometry(N: int, C: int, vec: int = 2) -> BwdGeometry:
+    """K3b's launch geometry for N rows of C columns, a function of (N, C)
+    alone (and of ``vec``: 2 where C is even and the rows aligned, else 1).
+
+    The group is the fewest warps, at most 16, whose threads cover the row
+    in 3 vectors each: at every SpectraNet width 192 * 2^k that is 2^k
+    warps and 6 f32 a thread. A wider row takes 8 vectors a thread (C <=
+    8192, or 4096 with vec 1), and a wider one still the wide path. The
+    grid is the blocks the rows need, capped at one wave: 2 blocks an SM
+    with 3 vectors a thread (ptxas fits them in 64 registers) or on the
+    wide path, else 1.
+    """
+    vec = vec if C % 2 == 0 else 1
+    n_vec = -(-C // vec)
+    warps = 1
+    while warps < 16 and 32 * warps * 3 < n_vec:
+        warps *= 2
+    fits = [k for k in BWD_CHUNKS if 32 * warps * k >= n_vec]
+    if not fits:
+        return BwdGeometry(1, 16, 0, min(N, 2 * BWD_SMS))
+    chunks = fits[0]
+    groups = BWD_THREADS // (32 * warps)
+    blocks = min(-(-N // groups), BWD_SMS * (2 if chunks == 3 else 1))
+    return BwdGeometry(vec, warps, chunks, blocks)
 
 
 def ln_gelu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -113,11 +162,13 @@ def ln_gelu_backward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, g
     code = dtype_code(x.dtype)
     N = x.numel() // max(C, 1)
     dx = torch.empty_like(x)
-    blocks = -(-N // BWD_ROWS)
-    ds_part = torch.empty((blocks, C), dtype=torch.float32, device=dev)
-    db_part = torch.empty((blocks, C), dtype=torch.float32, device=dev)
-    KERNEL_BWD.launch(dev, x, scale, bias, g, dx, ds_part, db_part, N, C, float(eps), code)
-    return dx, torch.sum(ds_part, dim=0), torch.sum(db_part, dim=0)
+    aligned = all(t.data_ptr() % (2 * t.element_size()) == 0 for t in (x, scale, bias, g))
+    geo = bwd_geometry(N, C, 2 if aligned else 1)
+    part = torch.empty((2, geo.blocks, C), dtype=torch.float32, device=dev)  # dscale's, dbias'
+    KERNEL_BWD.launch(dev, x, scale, bias, g, dx, part[0], part[1], N, C, float(eps), code,
+                      geo.vec, geo.warps, geo.chunks, geo.blocks)
+    sums = torch.sum(part, dim=1)
+    return dx, sums[0], sums[1]
 
 
 class _LnGelu(torch.autograd.Function):

@@ -23,7 +23,12 @@ Phases, in order; any failure exits non-zero before the result line:
    bit, the Philox kernels against the bits kernels fed the same keep mask
    at the same tails and head widths, the export at rate 0, and the keep
    rate over the train shape; K4 forward and backward timed at the train
-   shape with Philox and at rate 0; K3b at every SpectraNet stage; K4x, the
+   shape with Philox and at rate 0; K3b in f32 and bf16 at every SpectraNet
+   stage, at ragged row counts, odd widths and rows too wide for its
+   registers, with misaligned rows and twice on the same inputs (bitwise
+   equal), then at each of the five train-shape stages checked in f32 and
+   timed beside PyTorch's own LN+GELU backward (and no K3b instantiation
+   spilling registers in phase 1); K4x, the
    forward ablation ladder: every rung against its plain version in f32
    and bf16, on prefix-length masks, with no padded key, and on the
    ladder's own inputs (B = 256, random mask), ``full`` equal to K4a's
@@ -73,14 +78,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
-    """Median over ``reps`` of the mean device time of ``iters`` calls."""
+def time_ms(fn, iters: int = 10, reps: int = 5, queued: bool = False) -> float:
+    """Median over ``reps`` of the mean device time of ``iters`` calls.
+    ``queued``: each rep first holds the card in a sleep (~50 ms) while the
+    host queues the calls, so that the events time the device alone, and
+    not a host that enqueues slower than the card runs a short kernel."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if queued:
+            torch.cuda._sleep(100_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -127,6 +137,7 @@ def device_and_build() -> str:
     t0 = time.perf_counter()
     kernel.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {', '.join(kernel.SOURCES)}")
+    spilled = []
     for name, text in kernel.build_log.items():
         fn, spill = "", ""
         for line in text.splitlines():
@@ -137,8 +148,12 @@ def device_and_build() -> str:
                 spill = line.strip()
             elif "registers" in line:
                 log(f"  nvcc[{name}] {fn}: {line.strip().removeprefix('ptxas info    : ')}; {spill}")
+                if fn.startswith("ln_gelu_bwd") and "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                    spilled.append(fn)
             elif "error" in line.lower():
                 log(f"  nvcc[{name}] {line.strip()}")
+    if spilled:  # K3b holds a row in registers: a spill would send it back to memory
+        raise SystemExit(f"ptxas spilled registers in K3b: {spilled}")
     return card
 
 
@@ -749,50 +764,144 @@ def time_flash_ladder(dev) -> tuple[list, dict]:
     return records, launches
 
 
-def check_ln_gelu_bwd(rng, dev, rows: int = 64) -> dict:
-    """K3b vs ``ln_gelu_backward_reference`` at every SpectraNet stage with
-    ``rows`` spectra, f32: dx <= 1e-5 * max(1, |dx|); dscale and dbias
-    <= 1e-4 * max|.| (sums over up to 2e5 rows in another order). Timed at
-    the train shape's stage 0 (256 spectra)."""
+def _ln_gelu_bwd_inputs(rng, N, C, dev, dtype=None):
+    import torch
+
+    x = torch.from_numpy((rng.normal(size=(N, C)) * 2.0 + 0.5).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32)).to(dev, dtype)
+    scale = torch.from_numpy(rng.uniform(0.8, 1.2, C).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(0.0, 0.1, C).astype(np.float32)).to(dev)
+    return x, scale, bias, g
+
+
+# (N, C) of K3b's ragged cases: fewer rows than a block's row groups, rows
+# not a multiple of the grid's, odd and uneven widths (one element a
+# vector), rows wider than SpectraNet's (8 vectors a thread), the widest a
+# group holds, and wider rows, which stream (odd above 4096, even above
+# 8192, fewer rows than the grid's blocks)
+LN_GELU_BWD_RAGGED = ((5, 192), (1, 3072), (1000, 1), (777, 33), (4099, 200), (100, 5000),
+                      (50, 8192), (64, 4095), (97 * 3481 + 3, 192), (301, 4097), (97, 8191),
+                      (300, 10000), (3, 20001))
+
+
+def _compare_ln_gelu_bwd(x, scale, bias, g, what, geo) -> float:
+    """K3b on (x, scale, bias, g) against ``ln_gelu_backward_reference`` on
+    the same inputs, and a second launch, which must give the same bits.
+    f32: dx <= 1e-5 * max(1, |dx|); bf16: dx <= 2e-2 * max(1, |plain|)
+    (both round the same f32 dx once); dscale and dbias <= 1e-4 * max|.|
+    in both (f32 sums over up to 9e5 rows in another order). Raises on a
+    failure; returns dx's max |d|."""
     import torch
 
     from applecider_tpu_torch.ops import ln_gelu as lg
 
-    err_max = 0.0
+    N, C = x.shape
+    dx, ds, db = lg.ln_gelu_backward(x, scale, bias, g)
+    wdx, wds, wdb = lg.ln_gelu_backward_reference(x, scale, bias, g)
+    e_dx, ok_dx = _rel_ok(dx, wdx, 1e-5 if x.dtype == torch.float32 else 2e-2)
+    e_ds = max(float((ds - wds).abs().max()) / max(float(wds.abs().max()), 1e-30),
+               float((db - wdb).abs().max()) / max(float(wdb.abs().max()), 1e-30))
+    del wdx
+    again = lg.ln_gelu_backward(x, scale, bias, g)
+    same = all(torch.equal(a, b) for a, b in zip((dx, ds, db), again))
+    ok = ok_dx and e_ds <= 1e-4 and same
+    dname = "float32" if x.dtype == torch.float32 else "bfloat16"
+    rule = "<= 1e-5*max(1,|dx|)" if x.dtype == torch.float32 else "<= 2e-2*max(1,|plain|)"
+    log(f"K3b ln_gelu_bwd N={N} C={C} {dname} ({what}, {geo}): dx max|d|={e_dx:.3g} "
+        f"({rule}), dscale/dbias max|d|/max|.|={e_ds:.3g} (<= 1e-4), second launch bitwise equal: "
+        f"{same} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"K3b disagrees with its plain version, or with itself, at N={N} C={C} {dname}")
+    return e_dx
+
+
+def _check_ln_gelu_bwd_case(rng, dev, N, C, dtype, what, misalign=False) -> float:
+    """``_compare_ln_gelu_bwd`` on fresh inputs of (N, C). ``misalign``
+    starts x and g one element past an aligned address, which takes
+    one-element accesses."""
+    import torch
+
+    from applecider_tpu_torch.ops import ln_gelu as lg
+
+    x, scale, bias, g = _ln_gelu_bwd_inputs(rng, N, C, dev, dtype)
+    if misalign:  # the same values one element into a fresh buffer
+        x, g = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(N, C) for t in (x, g))
+    return _compare_ln_gelu_bwd(x, scale, bias, g, what, lg.bwd_geometry(N, C, 1 if misalign else 2))
+
+
+def time_ln_gelu_bwd_stages(dev) -> list[dict]:
+    """K3b at every train-shape stage (TRAIN_B spectra, f32, the input the
+    training step gives it): first held against its plain version on the
+    same inputs (``_compare_ln_gelu_bwd``: f32 limits, two launches
+    bitwise equal; ``max_abs_err``), then the wrapper's time as every
+    kernel is timed here (``ms``), its device time alone (``device_ms``:
+    the calls queued first), the plain version's and the byte bound, x and
+    g read once and dx written once."""
+    from applecider_tpu_torch.ops import ln_gelu as lg
+
+    rng = np.random.default_rng(3)
+    rows = []
     for C, L in LN_GELU_SHAPES:
-        N = rows * L
-        x = torch.from_numpy((rng.normal(size=(N, C)) * 2.0 + 0.5).astype(np.float32)).to(dev)
-        g = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32)).to(dev)
-        scale = torch.from_numpy(rng.uniform(0.8, 1.2, C).astype(np.float32)).to(dev)
-        bias = torch.from_numpy(rng.normal(0.0, 0.1, C).astype(np.float32)).to(dev)
-        dx, ds, db = lg.ln_gelu_backward(x, scale, bias, g)
-        wdx, wds, wdb = lg.ln_gelu_backward_reference(x, scale, bias, g)
-        e_dx, ok_dx = _rel_ok(dx, wdx, 1e-5)
-        e_ds = max(float((ds - wds).abs().max()) / max(float(wds.abs().max()), 1e-30),
-                   float((db - wdb).abs().max()) / max(float(wdb.abs().max()), 1e-30))
-        ok = ok_dx and e_ds <= 1e-4
-        log(f"K3b ln_gelu_bwd N={N} C={C} (L_stage={L}) float32: dx max|d|={e_dx:.3g} "
-            f"(<= 1e-5*max(1,|dx|)), dscale/dbias max|d|/max|.|={e_ds:.3g} (<= 1e-4) "
-            f"{'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"K3b disagrees with its plain version at C={C}")
-        err_max = max(err_max, e_dx)
-        del x, g, dx, wdx
+        N = TRAIN_B * L
+        x, scale, bias, g = _ln_gelu_bwd_inputs(rng, N, C, dev)
+        err = _compare_ln_gelu_bwd(x, scale, bias, g, f"train shape, L_stage={L}", lg.bwd_geometry(N, C))
+        ms_k = time_ms(lambda: lg.ln_gelu_backward(x, scale, bias, g))
+        ms_d = time_ms(lambda: lg.ln_gelu_backward(x, scale, bias, g), queued=True)
+        ms_p = time_ms(lambda: lg.ln_gelu_backward_reference(x, scale, bias, g), iters=2, reps=3)
+        b_ms, b_by = bound_ms(3 * N * C * 4 + 4 * C * 4, 40.0 * N * C, "float32")
+        rows.append(dict(C=C, N=N, max_abs_err=err, ms=ms_k, device_ms=ms_d, plain_ms=ms_p, bound_ms=b_ms,
+                         bound_by=b_by))
+        del x, g
+    return rows
+
+
+def check_ln_gelu_bwd(rng, dev, rows: int = 64) -> dict:
+    """K3b against ``ln_gelu_backward_reference`` (``_compare_ln_gelu_bwd``:
+    tolerances, and two launches bitwise equal) at every SpectraNet stage
+    with ``rows`` spectra in f32 and bf16, at ``LN_GELU_BWD_RAGGED`` in both
+    dtypes, and with misaligned rows at stage 0 and at a width that streams;
+    then at every train-shape stage, checked in f32 on the inputs it is
+    timed on (the record's ``max_abs_err`` is stage 0's), and PyTorch's own
+    backward through ``F.gelu(F.layer_norm(...))`` at stage 0 beside it, as
+    context (two library kernels, not one call: library_ms stays null)."""
+    import torch
+    import torch.nn.functional as F
+
+    for C, L in LN_GELU_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_ln_gelu_bwd_case(rng, dev, rows * L, C, dtype, f"stage L_stage={L}")
+    for N, C in LN_GELU_BWD_RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_ln_gelu_bwd_case(rng, dev, N, C, dtype, "ragged")
+    for N, C in ((rows * LN_GELU_SHAPES[0][1], LN_GELU_SHAPES[0][0]), (64, 6000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_ln_gelu_bwd_case(rng, dev, N, C, dtype, "rows one element off alignment", misalign=True)
+
+    stages = time_ln_gelu_bwd_stages(dev)
+    for st in stages:
+        log(f"K3b ln_gelu_bwd N={st['N']} C={st['C']} float32 (train shape): kernel {st['ms']:.4f} ms "
+            f"(device alone {st['device_ms']:.4f} ms) plain {st['plain_ms']:.4f} ms bound "
+            f"{st['bound_ms']:.5f} ms ({st['bound_by']}), {st['bound_ms'] / st['ms']:.1%} of the bound; "
+            f"library none")
+    total, total_bound = sum(st["ms"] for st in stages), sum(st["bound_ms"] for st in stages)
+    total_dev = sum(st["device_ms"] for st in stages)
+    log(f"K3b over the five train-shape stages (one training step's launches): {total:.4f} ms "
+        f"(device alone {total_dev:.4f} ms) against a bound of {total_bound:.4f} ms")
     C, L = LN_GELU_SHAPES[0]
     N = TRAIN_B * L
-    x = torch.from_numpy((rng.normal(size=(N, C)) * 2.0 + 0.5).astype(np.float32)).to(dev)
-    g = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32)).to(dev)
-    scale = torch.from_numpy(rng.uniform(0.8, 1.2, C).astype(np.float32)).to(dev)
-    bias = torch.from_numpy(rng.normal(0.0, 0.1, C).astype(np.float32)).to(dev)
-    ms_k = time_ms(lambda: lg.ln_gelu_backward(x, scale, bias, g))
-    ms_p = time_ms(lambda: lg.ln_gelu_backward_reference(x, scale, bias, g), iters=2, reps=3)
-    b_ms, b_by = bound_ms(3 * N * C * 4 + 4 * C * 4, 40.0 * N * C, "float32")
-    log(f"K3b ln_gelu_bwd N={N} C={C} float32 (train shape, stage 0): kernel {ms_k:.4f} ms "
-        f"plain {ms_p:.4f} ms bound {b_ms:.5f} ms ({b_by}) library none")
+    x, scale, bias, g = _ln_gelu_bwd_inputs(rng, N, C, dev)
+    xr, sr, br = (t.clone().requires_grad_() for t in (x, scale, bias))
+    y = F.gelu(F.layer_norm(xr, (C,), sr, br))
+    ms_lib = time_ms(lambda: torch.autograd.grad(y, (xr, sr, br), g, retain_graph=True))
+    log(f"PyTorch's backward through F.gelu(F.layer_norm(...)) at N={N} C={C} float32, as context "
+        f"(two library kernels): {ms_lib:.4f} ms, kernel/that {stages[0]['ms'] / ms_lib:.2f}")
+    del x, g, xr, y
+    st0 = stages[0]
     return dict(name="ln_gelu_bwd", route="cuda", source="applecider_tpu_torch/csrc/ln_gelu.cu",
-                replaces="applecider_tpu/ops/ln_gelu.py:89", shape=f"N={N} C={C}", dtype="float32",
-                max_abs_err=err_max, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                replaces="applecider_tpu/ops/ln_gelu.py:89", shape=f"N={st0['N']} C={st0['C']}",
+                dtype="float32", max_abs_err=st0["max_abs_err"], ms=st0["ms"], plain_ms=st0["plain_ms"],
+                bound_ms=st0["bound_ms"], bound_by=st0["bound_by"], library_ms=None,
+                stages=stages, stages_ms=total, stages_device_ms=total_dev, stages_bound_ms=total_bound)
 
 
 def check_kernels() -> tuple[list[dict], dict]:
