@@ -5,6 +5,17 @@ the hand-written kernel ``csrc/merge_scan.cu`` on a CUDA tensor and runs
 the plain PyTorch version ``seg_ids_reference`` on a CPU tensor; any other
 device raises. Both return, for every slot, the position of the start of
 its band's open group, or P for invalid slots and bands outside [0, 3).
+
+The kernel gives a block to each light curve and a thread to each step.
+Where each band's valid times are non-decreasing, with no NaN and no -inf
+(the serving layout: time-ascending prefixes, +inf in the invalid tail),
+it finds the group starts in O(log P) steps: each point's successor by a
+search in its band's times, the chain from each band's first point by
+pointer doubling, and each point's start as the last mark at or before it.
+Every other row, and every row longer than 1024 steps, one warp walks with
+the recurrence itself, on the card, and adds one to the device counter
+``walked_rows(device)``, which a caller zeroes and reads to see which path
+its rows took.
 """
 
 from __future__ import annotations
@@ -19,9 +30,21 @@ N_BANDS = 3
 
 KERNEL = CudaKernel(
     "merge_scan", "ac_seg_ids",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_float],
 )
+_walked: dict[torch.device, torch.Tensor] = {}
+
+
+def walked_rows(device: torch.device) -> torch.Tensor:
+    """The (1,) int32 counter on ``device`` to which K1 adds each row that it
+    walked with the recurrence instead of the parallel path."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _walked:
+        _walked[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _walked[device]
 
 
 def seg_ids_reference(t_sorted: torch.Tensor, band: torch.Tensor, valid: torch.Tensor,
@@ -64,5 +87,5 @@ def seg_ids(t_sorted: torch.Tensor, band: torch.Tensor, valid: torch.Tensor,
         raise ValueError("seg_ids takes contiguous tensors")
     B, P = t_sorted.shape
     out = torch.empty((B, P), dtype=torch.int32, device=dev)
-    KERNEL.launch(dev, t_sorted, band, valid, out, B, P, float(dt_days))
+    KERNEL.launch(dev, t_sorted, band, valid, out, walked_rows(dev), B, P, float(dt_days))
     return out

@@ -10,28 +10,59 @@ pass it reports, on the card it runs on:
 1. for one full batch of each length bucket: host packing time, the
    host-to-device copy, and the device time of each layer (preprocessing,
    photometry encoder, spectra encoder, image+metadata encoder, and the
-   rest: projections, fusion head, softmax), from CUDA events;
+   rest: projections, fusion head, softmax), from CUDA events; and, inside
+   preprocessing, the merge's group-start kernel K1 (``k1_ms``: events
+   around its call, so it holds the host's enqueue of the call where the
+   card waits on it; ``k1_launch_ms`` by the host clock);
 2. for one whole pass: wall time, the device's busy time summed over
    kernels from ``torch.profiler`` (the idle share is the rest), and the
    kernels that took the most device time.
 
 Needs a GPU; prints the card's name and power limit first and the whole
-report as one JSON line last.
+report as one JSON line last. Run by path with another checkout's root on
+``PYTHONPATH`` (``PYTHONPATH=<root> python3 <this file>``), it times that
+checkout's package with this script, for an A/B in one call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 
 import torch
 
 from applecider_tpu_torch.device import card_name_and_power
+from applecider_tpu_torch.infer import stream as stream_module
 from applecider_tpu_torch.infer.stream import LENGTH_BUCKETS, FusedSpectraStream, LengthBinnedFeeder
 from applecider_tpu_torch.models import build_fusion_model
 from applecider_tpu_torch.testing import make_alert_samples
 
 FLUSH_BS = 512
+
+
+@contextlib.contextmanager
+def k1_calls():
+    """Within the block, each call of K1 by the serving path (``seg_ids`` as
+    ``infer.stream`` calls it) records a CUDA event before and after it and
+    its host time; yields the list of (start, end, host seconds)."""
+    inner = stream_module.seg_ids
+    calls = []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        calls.append((start, end, time.perf_counter() - t0))
+        return out
+
+    stream_module.seg_ids = timed
+    try:
+        yield calls
+    finally:
+        stream_module.seg_ids = inner
 
 
 @torch.inference_mode()
@@ -53,7 +84,8 @@ def layer_times(stream: FusedSpectraStream, samples: list, bucket: int) -> dict:
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
     host = [time.perf_counter()]
     ev[0].record()
-    x = pipe.preprocess(placed)
+    with k1_calls() as k1:
+        x = pipe.preprocess(placed)
     stages = (
         lambda: model.photometry_encoder(x["photometry"], x["photo_mask"]),
         lambda: model.spectra_encoder(x["spectra"]),
@@ -74,6 +106,9 @@ def layer_times(stream: FusedSpectraStream, samples: list, bucket: int) -> dict:
     for i, name in enumerate(names):
         row[f"{name}_ms"] = ev[i].elapsed_time(ev[i + 1])
         row[f"{name}_launch_ms"] = (host[i + 1] - host[i]) * 1e3
+    (k1_start, k1_end, k1_host), = k1
+    row["k1_ms"] = k1_start.elapsed_time(k1_end)
+    row["k1_launch_ms"] = k1_host * 1e3
     row["forward_ms"] = ev[0].elapsed_time(ev[-1])
     return row
 

@@ -11,13 +11,20 @@ Phases, in order; any failure exits non-zero before the result line:
    with nvcc, one process per source, all started together;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, with kernel, plain, bound and (where one
-   PyTorch call computes the same function) library times: K1 and K3f as
-   the serving path runs them; K2 in f32 and bf16 at 16-row tile tails
-   (L = 1, 17, 33), at every serving length (L = 64, 128, 192, 256, 258,
-   B = 512) and at head widths 8 and 32, each with a fully masked batch
-   row, timed at the train shape and the serving shape; K4 forward and
-   backward on injected bits in f32 and bf16, at the same tails and head
-   widths; HMMA (tensor-core) instructions in the SASS of every bf16 K2
+   PyTorch call computes the same function) library times: K1 exactly,
+   twice bit for bit and with the number of rows it must walk with the
+   recurrence (none in the serving layout), on serving-layout rows at
+   every serving length, at warp edges and past a block's 1024 threads
+   (P up to 5000, B = 1 and 513), on rows of one group and of a group a
+   point, and on rows not time-ascending, with NaN and -inf times and with
+   holes, then timed (``tools/kernel_timing.py``) at B = 1024 P = 257 and
+   B = 512 at each serving length, as every kernel and with the calls
+   queued (the device alone); K3f as the serving path runs it; K2 in f32
+   and bf16 at 16-row tile tails (L = 1, 17, 33), at every serving length
+   (L = 64, 128, 192, 256, 258, B = 512) and at head widths 8 and 32, each
+   with a fully masked batch row, timed at the train shape and the
+   serving shape; K4 forward and backward on injected bits in f32 and
+   bf16, at the same tails and head widths; HMMA (tensor-core) instructions in the SASS of every bf16 K2
    and K4 instantiation and none in the FMA kernels' (f32, and the K4x
    ladder in both dtypes); K4's Philox bits against their twin bit for
    bit, the Philox kernels against the bits kernels fed the same keep mask
@@ -42,7 +49,7 @@ Phases, in order; any failure exits non-zero before the result line:
    synthetic alerts through ``LengthBinnedFeeder(FusedSpectraStream)`` in
    bf16, with every kernel's launch count read from that run alone; then
    256 alerts in f32 (TF32 off) through the kernel path and the plain path
-   with the same weights;
+   with the same weights; K1 must walk none of the serving rows;
 4. the training step at the full widths in bf16: ``Trainer.fit`` for one
    epoch of 12 steps of 256 samples, with the launch counts of K4 forward,
    K4 backward, K3f and K3b read from that run alone, a checkpoint written
@@ -68,6 +75,8 @@ from pathlib import Path
 
 import numpy as np
 
+from applecider_tpu_torch.tools.kernel_timing import time_ms
+
 REPO = Path(__file__).resolve().parent
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): bytes/s and ops/s
 HBM_BYTES_PER_S = 3.35e12
@@ -76,30 +85,6 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_ms(fn, iters: int = 10, reps: int = 5, queued: bool = False) -> float:
-    """Median over ``reps`` of the mean device time of ``iters`` calls.
-    ``queued``: each rep first holds the card in a sleep (~50 ms) while the
-    host queues the calls, so that the events time the device alone, and
-    not a host that enqueues slower than the card runs a short kernel."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if queued:
-            torch.cuda._sleep(100_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return float(np.median(times))
 
 
 @contextlib.contextmanager
@@ -165,47 +150,118 @@ def _short_kernel_name(mangled: str) -> str:
 
 
 # ------------------------------------------------------------- phase 2
-def _merge_inputs(rng, B, P, dev):
+# K1's cases: (kind, B, P). The serving layout at every serving length, at
+# warp edges and at the longest row with a thread a step (1024); P = 1025
+# and 5000 are longer, so every row of them is walked; B = 1 and 513; then
+# every kind of row that the parallel path must refuse or must take exactly.
+K1_BUCKETS = (63, 127, 191, 255, 257)  # infer.stream.LENGTH_BUCKETS
+K1_STAGED_MAX_P = 1024  # longest row that K1 gives a thread a step
+K1_CASES = ([("serving", 513, P) for P in (1, 31, 32, 33, *K1_BUCKETS, 1024, 1025, 5000)]
+            + [("serving", 1, P) for P in (1, 33, 257, 5000)]
+            + [(kind, 513, P) for kind in ("one_group", "singletons", "shuffled", "nan", "holes_inf",
+                                           "holes_finite") for P in (33, 257)])
+
+
+def _merge_inputs(rng, B, P, dev, kind="serving"):
+    """K1's inputs: the serving layout (``tools/kernel_timing.serving_rows``),
+    or one kind of row throughout: one group a band, a group a point, not
+    time-ascending, NaN and -inf times, holes holding +inf or finite times."""
     import torch
 
-    t = np.sort(rng.uniform(0, 30, (B, P)), axis=1).astype(np.float32)
-    n_valid = rng.integers(0, P + 1, B)
-    n_valid[:8] = 0  # empty rows
-    valid = np.arange(P)[None, :] < n_valid[:, None]
-    t[8:40] = np.round(t[8:40] * 4.0) / 4.0  # duplicate times and gaps of exactly dt
-    t = np.where(valid, t, np.inf).astype(np.float32)
+    from applecider_tpu_torch.tools.kernel_timing import serving_rows
+
+    if kind == "serving":
+        return serving_rows(rng, B, P, dev)
+    t = np.sort(rng.uniform(0, 30, (B, P)), axis=1)
+    valid = np.arange(P)[None, :] < rng.integers(0, P + 1, B)[:, None]
+    if kind == "one_group":  # each band's points within dt of its first
+        t = np.sort(rng.uniform(0, 0.5, (B, P)), axis=1).astype(np.float32)
+        t[:, -1] = t[:, 0] + np.float32(0.5)
+        valid[:] = True
+    elif kind == "singletons":  # 0.75 between points: every point a group
+        t = np.broadcast_to(np.arange(P, dtype=np.float32) * 0.75, (B, P))
+        valid[:] = True
+    elif kind == "shuffled":
+        t = rng.permuted(t, axis=1)
+    elif kind == "nan":
+        bad = rng.random((B, P)) < 0.15
+        bad[: B // 2, 0] = True
+        t = np.where(bad, np.where(rng.random((B, P)) < 0.5, np.nan, -np.inf), t)
+    elif kind in ("holes_inf", "holes_finite"):
+        valid = rng.random((B, P)) < 0.6
+    hole = rng.uniform(0, 30, (B, P)) if kind == "holes_finite" else np.inf
+    t = np.where(valid, t, hole).astype(np.float32)
     band = rng.integers(0, 3, (B, P)).astype(np.int32)
-    band[40:72] = rng.integers(-1, 5, (32, P))  # out-of-range bands
     return (torch.from_numpy(t).to(dev), torch.from_numpy(band).to(dev),
             torch.from_numpy(valid).to(dev))
 
 
-def check_merge_scan(rng, dev) -> dict:
-    from applecider_tpu_torch.ops import merge_scan as ms
+def _k1_walks(t, band, valid) -> int:
+    """Rows that K1 must walk with the recurrence: all when P is longer than
+    a block's 1024 threads, else those where some band's valid times are
+    not non-decreasing or hold a NaN or -inf."""
+    t, band, valid = (x.cpu().numpy() for x in (t, band, valid))
+    B, P = t.shape
+    if P > K1_STAGED_MAX_P:
+        return B
+    walks = 0
+    for r in range(B):
+        for k in range(3):
+            x = t[r][valid[r] & (band[r] == k)]
+            if not (np.all(x > -np.inf) and np.all(x[:-1] <= x[1:])):
+                walks += 1
+                break
+    return walks
 
-    rec = None
-    for P in (63, 257):
-        B = 1024
-        t, band, valid = _merge_inputs(rng, B, P, dev)
+
+def check_merge_scan(rng, dev) -> dict:
+    """K1 exactly equal to its plain version, twice bit for bit, with the
+    count of walked rows each case must give: on every case of ``K1_CASES``
+    (after the two B = 1024 serving cases drawn from ``rng``, as before, so
+    that the other kernels' inputs stay as they were), then on the inputs
+    it is timed on: B = 1024 P = 257 and B = 512 at each serving length, as
+    every kernel (``ms``) and with the calls queued behind a sleep
+    (``device_ms``)."""
+    import torch
+
+    from applecider_tpu_torch.ops import merge_scan as ms
+    from applecider_tpu_torch.tools.kernel_timing import time_k1
+
+    walked = ms.walked_rows(dev)
+
+    def check(kind, t, band, valid) -> int:
+        B, P = t.shape
+        walked.zero_()
         got = ms.seg_ids(t, band, valid, 0.5)
+        n_walked = int(walked.item())
+        again = ms.seg_ids(t, band, valid, 0.5)
         want = ms.seg_ids_reference(t, band, valid, 0.5)
         err = int((got - want).abs().max().item())
-        ok = err == 0
-        ms_k = time_ms(lambda: ms.seg_ids(t, band, valid, 0.5))
-        ms_p = time_ms(lambda: ms.seg_ids_reference(t, band, valid, 0.5), iters=2, reps=3)
-        nbytes = B * P * (4 + 4 + 1) + B * P * 4
-        b_ms, b_by = bound_ms(nbytes, 0.0, "float32")
-        log(f"K1 merge_scan B={B} P={P}: max|d|={err} (exact required) "
-            f"kernel {ms_k:.4f} ms plain {ms_p:.4f} ms bound {b_ms:.5f} ms ({b_by}) "
-            f"library none {'OK' if ok else 'FAIL'}")
+        expect = _k1_walks(t, band, valid)
+        same = torch.equal(got, again)
+        ok = err == 0 and same and n_walked == expect
+        log(f"K1 merge_scan {kind} B={B} P={P}: max|d|={err} (exact required), two launches "
+            f"{'equal' if same else 'DIFFER'}, rows walked {n_walked} "
+            f"(expected {expect}) {'OK' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"K1 disagrees with its plain version at P={P}")
-        if P == 257:
-            rec = dict(name="merge_scan", route="cuda", source="applecider_tpu_torch/csrc/merge_scan.cu",
-                       replaces="applecider_tpu/ops/merge_scan.py:48", shape=f"B={B} P={P}",
-                       dtype="float32", max_abs_err=float(err), ms=ms_k, plain_ms=ms_p,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    return rec
+            raise SystemExit(f"K1 fails on {kind} B={B} P={P}")
+        return err
+
+    errs = [check("serving", *_merge_inputs(rng, 1024, P, dev)) for P in (63, 257)]
+    crng = np.random.default_rng(8)
+    errs += [check(kind, *_merge_inputs(crng, B, P, dev, kind)) for kind, B, P in K1_CASES]
+    timed = time_k1(dev, check=lambda *x: errs.append(check("timed serving", *x)))
+    for r in timed:
+        r["bound_ms"] = bound_ms(r["B"] * r["P"] * (4 + 4 + 1 + 4), 0.0, "float32")[0]
+        log(f"K1 merge_scan timed B={r['B']} P={r['P']}: kernel {r['ms']:.4f} ms, device alone "
+            f"{r['device_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms (bytes)"
+            + (f", plain {r['plain_ms']:.4f} ms, library none" if "plain_ms" in r else ""))
+    main = timed[0]
+    return dict(name="merge_scan", route="cuda", source="applecider_tpu_torch/csrc/merge_scan.cu",
+                replaces="applecider_tpu/ops/merge_scan.py:48", shape=f"B={main['B']} P={main['P']}",
+                dtype="float32", max_abs_err=float(max(errs)), ms=main["ms"],
+                device_ms=main["device_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by="bytes", library_ms=None, buckets=timed[1:])
 
 
 def _tol_ok(got, want, dtype) -> tuple[float, bool]:
@@ -975,6 +1031,7 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
         LENGTH_BUCKETS, FusedSpectraStream, LengthBinnedFeeder,
     )
     from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.ops import merge_scan
     from applecider_tpu_torch.testing import make_alert_samples
 
     samples = make_alert_samples(n_alerts, seed=1, spectrum_frac=0.3, length_range=(20, 257),
@@ -992,6 +1049,8 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
     _, _, warm_s = serve(feeder(), samples, model.num_classes)  # first launches, cuDNN plans
     log(f"warm-up pass: {warm_s:.3f} s")
     counters = zero_counters()
+    walked = merge_scan.walked_rows(device) if str(device).startswith("cuda") else torch.zeros(1)
+    walked.zero_()
     probs, n_batches, secs = serve(feeder(), samples, model.num_classes)
     launches = {name: k.launches for name, k in counters.items()}
 
@@ -1012,6 +1071,9 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
         stray = [n for n in launches if n not in SERVING_KERNELS and launches[n]]
         if stray:
             raise SystemExit(f"the serving path launched training kernels: {stray}")
+        log(f"K1 rows walked with the recurrence in that run: {int(walked.item())} (0 required)")
+        if walked.item():
+            raise SystemExit("K1 walked rows of the serving path instead of taking its parallel path")
 
     # f32, TF32 off: kernel path vs plain path, same weights and alerts
     model32 = build_fusion_model(cfg, device=device, dtype=torch.float32)

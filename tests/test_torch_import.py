@@ -47,6 +47,7 @@ MODULES = [
     "applecider_tpu_torch.tools.profile_serving",
     "applecider_tpu_torch.tools.profile_training",
     "applecider_tpu_torch.tools.flash_microab",
+    "applecider_tpu_torch.tools.kernel_timing",
 ]
 
 
