@@ -13,8 +13,10 @@ Counterpart of ``applecider_tpu/infer/stream.py``. On each packed batch,
 * the AppleCider forward and a softmax.
 
 ``FusedSpectraStream`` packs each batch with a compact spectra block (only
-the spectra that exist, row 0 the zero spectrum) and ``LengthBinnedFeeder``
-groups alerts into batches by light-curve length. Host packing
+the spectra that exist, row 0 the zero spectrum), ``RoutedAlertStream``
+splits it into the alerts with a spectrum and a ``skip_spectra`` pipeline
+for the rest, and ``LengthBinnedFeeder`` groups alerts into batches by
+light-curve length. Host packing
 (``pack_alert_batch`` and friends) is NumPy and gives the JAX package's
 arrays bit for bit.
 
@@ -267,11 +269,20 @@ class AlertStreamPipeline:
 
     ``kernels=False`` runs the plain PyTorch versions of the kernels on the
     same device: the yardstick the kernel path is held to.
+
+    ``skip_spectra`` serves batches none of whose alerts has a spectrum:
+    resampling and MAD are skipped, SpectraNet runs once on a (1, G) zero
+    spectrum and its embedding broadcasts over the batch (every SpectraNet
+    op is per sample, so this equals a batch of zero spectra). It excludes
+    ``compact_spectra``.
     """
 
     def __init__(self, model, stats_mean=None, stats_std=None,
                  wave_grid: Optional[np.ndarray] = None, compact_spectra: bool = False,
-                 horizon_days: Optional[float] = 100.0, device="cuda", kernels: bool = True):
+                 horizon_days: Optional[float] = 100.0, device="cuda", kernels: bool = True,
+                 skip_spectra: bool = False):
+        if compact_spectra and skip_spectra:
+            raise ValueError("compact_spectra and skip_spectra are mutually exclusive")
         self.device = resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev != self.device:
@@ -286,6 +297,7 @@ class AlertStreamPipeline:
         self.horizon_days = None if horizon_days is None else float(horizon_days)
         self.grid = SpectrumGrid(DEFAULT_GRID if wave_grid is None else wave_grid, self.device)
         self.compact_spectra = bool(compact_spectra)
+        self.skip_spectra = bool(skip_spectra)
         self.kernels = bool(kernels)
         # metadata24 = meta19 + these context columns
         self._ctx_cols = torch.tensor([0, 1, 3, 4, 6], device=self.device)
@@ -310,11 +322,15 @@ class AlertStreamPipeline:
         photometry = torch.cat([cont, feats[..., 4:]], dim=-1)
         metadata = torch.cat([raw["meta19"], ctx.index_select(1, self._ctx_cols)], dim=1)
 
-        spectra = self.grid.resample(raw["spec_wl"], raw["spec_flux"], raw["spec_valid"])
-        has = raw["spec_has"] if self.compact_spectra else raw["has_spectrum"]
+        if self.skip_spectra:
+            spectra = torch.zeros((1, self.grid.gnp.shape[0]), device=self.device)
+        else:
+            spectra = self.grid.resample(raw["spec_wl"], raw["spec_flux"], raw["spec_valid"])
+            has = raw["spec_has"] if self.compact_spectra else raw["has_spectrum"]
+            spectra = torch.where(has[:, None], spectra, 0.0)
         return {
             "photometry": photometry, "photo_mask": pad_mask, "metadata": metadata,
-            "images": raw["image"], "spectra": torch.where(has[:, None], spectra, 0.0),
+            "images": raw["image"], "spectra": spectra,
             "spec_gather": raw["spec_gather"].long() if self.compact_spectra else None,
         }
 
@@ -442,6 +458,106 @@ def _scatter_spectra(fitted, srows, wl, fx, vd) -> None:
     vd[srows, scols] = True
 
 
+class RoutedAlertStream:
+    """Spectrum-presence router over two pipelines: the alerts with a
+    spectrum go through the full pipeline (resampling at ``max_spec`` 512,
+    SpectraNet per alert), the others through the ``skip_spectra`` one
+    (packed at ``max_spec`` 1, one zero-spectrum SpectraNet row broadcast).
+    Every SpectraNet op is per sample, so the split equals one monolithic
+    pass.
+
+    Each sub-batch is packed from its real alerts and padded to the next of
+    ``batch_buckets`` by tiling its first packed row; pad rows are sliced
+    off and results come back in input order. ``run_placed`` enqueues both
+    sub-batches before either is read back.
+    """
+
+    def __init__(self, model, batch_buckets=(8, 32, 64, 96, 128, 192, 256, 384, 512),
+                 device="cuda", **pipeline_kw):
+        self.full = AlertStreamPipeline(model, device=device, **pipeline_kw)
+        self.nospec = AlertStreamPipeline(model, skip_spectra=True, device=device, **pipeline_kw)
+        self.device = self.full.device
+        self.batch_buckets = tuple(sorted(batch_buckets))
+
+    def _bucket(self, n: int) -> int:
+        return next((b for b in self.batch_buckets if b >= n), n)
+
+    def place(self, samples: list[dict], length_buckets=None):
+        """Split, pack and copy both sub-batches to the device without
+        running them; the opaque result goes to ``run_placed``."""
+        parts = []
+        for with_spectrum, max_spec in ((True, 512), (False, 1)):
+            idx = [i for i, s in enumerate(samples) if _has_spectrum(s) == with_spectrum]
+            if not idx:
+                parts.append((None, idx))
+                continue
+            raw = pack_alert_batch([samples[i] for i in idx], max_spec=max_spec,
+                                   length_buckets=length_buckets)
+            pad = self._bucket(len(idx)) - len(idx)
+            if pad:  # pack the real alerts once, then tile the first row
+                raw = {k: np.concatenate([v, np.repeat(v[:1], pad, axis=0)]) for k, v in raw.items()}
+            parts.append(({k: torch.from_numpy(v).to(self.device) for k, v in raw.items()}, idx))
+        return len(samples), parts
+
+    def run_placed(self, placed):
+        """Enqueue both sub-batches of a placed batch; returns a zero-argument
+        resolver that waits for them and returns (N, C) NumPy probabilities
+        in input order."""
+        n, parts = placed
+        outs = [None if raw is None else pipe(raw)
+                for pipe, (raw, _) in zip((self.full, self.nospec), parts)]
+
+        def resolve() -> np.ndarray:
+            probs = np.zeros((n, self.full.model.num_classes), np.float32)
+            for out, (_, idx) in zip(outs, parts):
+                if out is not None:
+                    probs[np.asarray(idx)] = out.cpu().numpy()[: len(idx)]
+            return probs
+
+        return resolve
+
+    def __call__(self, samples: list[dict], length_buckets=None) -> np.ndarray:
+        """Pack, place and run one batch; (N, C) NumPy probabilities."""
+        return self.run_placed(self.place(samples, length_buckets=length_buckets))()
+
+
+SPEC_POINTS = 512  # points a spectrum of the compact block is fitted to
+
+
+def pack_compact(samples: list[dict], spec_buckets, length_buckets=None, pad_to=None) -> dict:
+    """Host half of ``FusedSpectraStream.place``: pack the batch, the compact
+    spectra block and the gather map into NumPy arrays. The block holds the
+    batch's spectra after a zero row 0, their count rounded up to
+    ``spec_buckets``. ``pad_to`` pads the packed batch rows with copies of
+    row 0 (callers slice the pad off the output)."""
+    raw = pack_alert_batch(samples, max_spec=1, length_buckets=length_buckets)
+    for k in ("spec_wl", "spec_flux", "spec_valid", "has_spectrum"):
+        del raw[k]
+    B = len(samples)
+    W = SPEC_POINTS
+    spec_idx = [i for i, s in enumerate(samples) if _has_spectrum(s)]
+    S = next((b for b in sorted(spec_buckets) if b >= len(spec_idx)), len(spec_idx))
+    wl = np.zeros((S + 1, W), np.float32)
+    fx = np.zeros((S + 1, W), np.float32)
+    vd = np.zeros((S + 1, W), bool)
+    has = np.zeros((S + 1,), bool)
+    gather = np.zeros((B,), np.int32)
+    if spec_idx:
+        fitted = _fitted_spectra(samples, spec_idx, W)
+        srows = np.repeat(1 + np.arange(len(spec_idx), dtype=np.int64),
+                          [len(w) for w, _ in fitted])
+        _scatter_spectra(fitted, srows, wl, fx, vd)
+        has[1:len(spec_idx) + 1] = True
+        gather[np.asarray(spec_idx)] = 1 + np.arange(len(spec_idx), dtype=np.int32)
+    raw.update(spec_wl=wl, spec_flux=fx, spec_valid=vd, spec_has=has, spec_gather=gather)
+    if pad_to is not None and B and pad_to > B:
+        # batch-dim arrays only; the spectra block is batch-independent
+        raw = {k: (np.concatenate([v, np.repeat(v[:1], pad_to - B, axis=0)])
+                   if v.shape and v.shape[0] == B else v)
+               for k, v in raw.items()}
+    return raw
+
+
 class FusedSpectraStream:
     """One forward per batch with a compact spectra block.
 
@@ -453,8 +569,6 @@ class FusedSpectraStream:
     batch with zero spectra where there are none.
     """
 
-    max_spec = 512  # points a spectrum is fitted to
-
     def __init__(self, model, spec_buckets=(0, 4, 8, 16, 32, 64, 96, 112, 128, 192, 256,
                                             320, 384, 512),
                  device="cuda", **pipeline_kw):
@@ -462,40 +576,11 @@ class FusedSpectraStream:
         self.device = self.pipe.device
         self.spec_buckets = tuple(sorted(spec_buckets))
 
-    def _bucket(self, n: int) -> int:
-        return next((b for b in self.spec_buckets if b >= n), n)
-
     def place(self, samples: list[dict], length_buckets=None, pad_to=None,
               host_only: bool = False):
-        """Pack the batch, the compact spectra block and the gather map;
-        ``host_only`` returns the NumPy dict, else it is copied to the
-        device. ``pad_to`` pads the packed batch rows with copies of row 0
-        (callers slice the pad off the output)."""
-        raw = pack_alert_batch(samples, max_spec=1, length_buckets=length_buckets)
-        for k in ("spec_wl", "spec_flux", "spec_valid", "has_spectrum"):
-            del raw[k]
-        B = len(samples)
-        W = self.max_spec
-        spec_idx = [i for i, s in enumerate(samples) if _has_spectrum(s)]
-        S = self._bucket(len(spec_idx))
-        wl = np.zeros((S + 1, W), np.float32)
-        fx = np.zeros((S + 1, W), np.float32)
-        vd = np.zeros((S + 1, W), bool)
-        has = np.zeros((S + 1,), bool)
-        gather = np.zeros((B,), np.int32)
-        if spec_idx:
-            fitted = _fitted_spectra(samples, spec_idx, W)
-            srows = np.repeat(1 + np.arange(len(spec_idx), dtype=np.int64),
-                              [len(w) for w, _ in fitted])
-            _scatter_spectra(fitted, srows, wl, fx, vd)
-            has[1:len(spec_idx) + 1] = True
-            gather[np.asarray(spec_idx)] = 1 + np.arange(len(spec_idx), dtype=np.int32)
-        raw.update(spec_wl=wl, spec_flux=fx, spec_valid=vd, spec_has=has, spec_gather=gather)
-        if pad_to is not None and B and pad_to > B:
-            # batch-dim arrays only; the spectra block is batch-independent
-            raw = {k: (np.concatenate([v, np.repeat(v[:1], pad_to - B, axis=0)])
-                       if v.shape and v.shape[0] == B else v)
-                   for k, v in raw.items()}
+        """``pack_compact`` with this stream's ``spec_buckets``; ``host_only``
+        returns the NumPy dict, else it is copied to the device."""
+        raw = pack_compact(samples, self.spec_buckets, length_buckets=length_buckets, pad_to=pad_to)
         return raw if host_only else self.place_packed(raw)
 
     def place_packed(self, raw: dict) -> dict:

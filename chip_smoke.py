@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device and build: the card's name and power limit, then every kernel of
    the serving and training paths built from ``applecider_tpu_torch/csrc``
-   with nvcc, one process per source, all started together;
+   with nvcc, one process per source, all started together, and whether
+   the C++ compiler finds ``zlib.h``;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, with kernel, plain, bound and (where one
    PyTorch call computes the same function) library times: K1 exactly,
@@ -50,6 +51,17 @@ Phases, in order; any failure exits non-zero before the result line:
    bf16, with every kernel's launch count read from that run alone; then
    256 alerts in f32 (TF32 off) through the kernel path and the plain path
    with the same weights; K1 must walk none of the serving rows;
+3b. raw-alert serving, with phase 3's weights: 128 ZTF-layout object
+   directories written by ``testing.make_corpus`` (16 alerts each, light
+   curves of U(20, 300) points, 30% with a spectrum, gzipped FITS stamps)
+   read and decoded on the host alone (host ms), then served from the
+   directories through ``serve_alert_stream(model, iter_alert_samples(dir))``
+   in bf16 (alerts/s, host reading included), with K1, K2 and K3f's launch
+   counts read from that run alone; then, in f32 with TF32 off on the first
+   256 alerts, binned against arrival order, ``RoutedAlertStream`` against
+   ``FusedSpectraStream`` and the kernel path against the plain path
+   (each <= 1e-4), and ``OverlappedServingFeeder`` in thread and process
+   mode on records carrying stamps against the serial router (<= 1e-6);
 4. the training step at the full widths in bf16: ``Trainer.fit`` for one
    epoch of 12 steps of 256 samples, with the launch counts of K4 forward,
    K4 backward, K3f and K3b read from that run alone, a checkpoint written
@@ -139,7 +151,23 @@ def device_and_build() -> str:
                 log(f"  nvcc[{name}] {line.strip()}")
     if spilled:  # K3b holds a row in registers: a spill would send it back to memory
         raise SystemExit(f"ptxas spilled registers in K3b: {spilled}")
+    probe_zlib()
     return card
+
+
+def probe_zlib() -> None:
+    """Log whether this machine's C++ compiler finds ``zlib.h``: a native
+    stamp decoder that links zlib could be built here only if it does."""
+    import subprocess
+
+    try:
+        out = subprocess.run(["g++", "-E", "-x", "c++", "-"], input="#include <zlib.h>\n",
+                             capture_output=True, text=True, timeout=60)
+        found = "present" if out.returncode == 0 else "absent"
+        detail = out.stderr.strip().splitlines()[0] if out.returncode else ""
+    except (OSError, subprocess.TimeoutExpired) as e:
+        found, detail = "not probed", f"{type(e).__name__}: {e}"
+    log(f"zlib.h (g++ -E, for a native stamp decoder): {found} {detail}".rstrip())
 
 
 def _short_kernel_name(mangled: str) -> str:
@@ -1006,6 +1034,24 @@ def zero_counters() -> dict:
     return counters
 
 
+def _kernel_launches(counters: dict) -> dict:
+    return {name: k.launches for name, k in counters.items()}
+
+
+def _require_serving_launches(launches: dict, walked, what: str) -> None:
+    """Every serving kernel launched, no training kernel, no K1 row walked
+    with the recurrence."""
+    missing = [n for n in SERVING_KERNELS if launches[n] == 0]
+    if missing:
+        raise SystemExit(f"{what} never launched: {missing}")
+    stray = [n for n in launches if n not in SERVING_KERNELS and launches[n]]
+    if stray:
+        raise SystemExit(f"{what} launched training kernels: {stray}")
+    if walked.item():
+        raise SystemExit(f"K1 walked {int(walked.item())} rows of {what} instead of taking its "
+                         "parallel path")
+
+
 def serve(feeder, samples: list, num_classes: int) -> tuple[np.ndarray, int, float]:
     """Every sample through ``feeder``; (probabilities in sample order,
     batches, wall seconds from the first submit to the last result)."""
@@ -1052,7 +1098,7 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
     walked = merge_scan.walked_rows(device) if str(device).startswith("cuda") else torch.zeros(1)
     walked.zero_()
     probs, n_batches, secs = serve(feeder(), samples, model.num_classes)
-    launches = {name: k.launches for name, k in counters.items()}
+    launches = _kernel_launches(counters)
 
     sums = probs.sum(axis=1)
     if probs.shape != (n_alerts, model.num_classes) or not np.isfinite(probs).all():
@@ -1065,15 +1111,8 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
         f"max |sum-1| {float(np.abs(sums - 1).max()):.3g}")
     log(f"launches in that run: {launches} ({n_batches} batches)")
     if str(device).startswith("cuda"):
-        missing = [n for n in SERVING_KERNELS if launches[n] == 0]
-        if missing:
-            raise SystemExit(f"the serving path never launched: {missing}")
-        stray = [n for n in launches if n not in SERVING_KERNELS and launches[n]]
-        if stray:
-            raise SystemExit(f"the serving path launched training kernels: {stray}")
         log(f"K1 rows walked with the recurrence in that run: {int(walked.item())} (0 required)")
-        if walked.item():
-            raise SystemExit("K1 walked rows of the serving path instead of taking its parallel path")
+        _require_serving_launches(launches, walked, "the serving path")
 
     # f32, TF32 off: kernel path vs plain path, same weights and alerts
     model32 = build_fusion_model(cfg, device=device, dtype=torch.float32)
@@ -1089,7 +1128,202 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
     if not err <= 1e-4:
         raise SystemExit("f32 serving path disagrees with the plain path")
     return {"launches": launches, "batches": n_batches, "alerts_per_s": n_alerts / secs,
-            "parity_err": err}
+            "parity_err": err, "model": model, "model32": model32}
+
+
+# ------------------------------------------------------------- phase 3b
+def _stamp_records(pairs: list) -> list:
+    """Records carrying raw stamps: each sample with its image written back
+    to three gzipped FITS blobs (float32 FITS holds the pixels exactly)."""
+    from applecider_tpu_torch.preprocessing.fitsio import write_fits_image
+
+    records = []
+    for _, s in pairs:
+        r = {k: v for k, v in s.items() if k != "image"}
+        r["stamps"] = [write_fits_image(np.ascontiguousarray(s["image"][:, :, c])) for c in range(3)]
+        records.append(r)
+    return records
+
+
+def host_split(data_dir: Path) -> dict:
+    """Milliseconds of each host step of reading the corpus, one pass each
+    over every object: unpickling ``alerts.npy``, decoding the stamps,
+    reading ``photometry.csv`` with the alerts' photometry, reading
+    ``spectra.csv``."""
+    from applecider_tpu_torch.infer.serve import _alert_triplet, _raw_spectrum
+    from applecider_tpu_torch.preprocessing.photometry import load_photometry
+    from applecider_tpu_torch.preprocessing.spectra import (
+        extract_spectrum_time_mjd, read_spectra_csv,
+    )
+
+    ms = dict.fromkeys(("alerts_npy", "stamps", "photometry_csv", "spectra_csv"), 0.0)
+    for obj in sorted(p.name for p in data_dir.iterdir()):
+        t0 = time.perf_counter()
+        alerts = list(np.load(data_dir / obj / "alerts.npy", allow_pickle=True))
+        t1 = time.perf_counter()
+        [_alert_triplet(a) for a in alerts]
+        t2 = time.perf_counter()
+        load_photometry(obj, data_dir, alerts=alerts)
+        t3 = time.perf_counter()
+        df = read_spectra_csv(obj, data_dir)
+        _raw_spectrum(df), extract_spectrum_time_mjd(df)
+        t4 = time.perf_counter()
+        for k, a, b in (("alerts_npy", t0, t1), ("stamps", t1, t2), ("photometry_csv", t2, t3),
+                        ("spectra_csv", t3, t4)):
+            ms[k] += (b - a) * 1e3
+    return ms
+
+
+def check_raw_serving(model, model32, card: str, n_objects: int = 128, alerts_per_object: int = 16,
+                      batch_size: int = 512, n_parity: int = 256, seed: int = 5) -> dict:
+    """Phase 3b: raw-alert serving, from object directories on disk to
+    per-alert probabilities, with phase 3's weights.
+
+    A corpus of ``n_objects`` directories (``testing.make_corpus``: light
+    curves of U(20, 300) points, ``alerts_per_object`` alerts each, 30% of
+    the objects with a spectrum, 63x63 gzipped FITS stamps) is read once
+    for the host's time alone, then served through
+    ``serve_alert_stream(model, iter_alert_samples(dir))`` (binned, bf16)
+    with the kernels' launch counts read from that run alone, and served
+    again from the samples already read. In f32 with TF32 off, on the first
+    ``n_parity`` alerts: binned against arrival order, ``RoutedAlertStream``
+    against ``FusedSpectraStream`` and the kernel path against the plain
+    path, each within 1e-4 in probability; ``OverlappedServingFeeder`` in
+    thread and process mode on records carrying stamps against the serial
+    router within 1e-6.
+    """
+    import tempfile
+
+    import torch
+
+    from applecider_tpu_torch.infer.feeder import OverlappedServingFeeder, assemble_samples
+    from applecider_tpu_torch.infer.serve import iter_alert_samples, serve_alert_stream
+    from applecider_tpu_torch.infer.stream import (
+        LENGTH_BUCKETS, FusedSpectraStream, RoutedAlertStream,
+    )
+    from applecider_tpu_torch.ops import merge_scan
+    from applecider_tpu_torch.testing import make_corpus
+
+    dev = next(model.parameters()).device
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_") as tmp:
+        t0 = time.perf_counter()
+        data_dir, _ = make_corpus(Path(tmp), n_objects=n_objects, seed=seed, n_photometry=(20, 300),
+                                  n_alerts=alerts_per_object, spectrum_frac=0.3)
+        size = sum(f.stat().st_size for f in data_dir.rglob("*") if f.is_file())
+        n_spec_objects = len(list(data_dir.glob("*/spectra.csv")))
+        log(f"raw corpus: {n_objects} object directories, {alerts_per_object} alerts each, "
+            f"{n_spec_objects} with a spectrum, {size / 2**20:.1f} MiB, written in "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+        # the host alone: read CSVs and alerts, decode stamps, cut per alert
+        t0 = time.perf_counter()
+        pairs = list(iter_alert_samples(data_dir))
+        host_s = time.perf_counter() - t0
+        n = len(pairs)
+        lengths = np.asarray([i["n_photometry"] for i, _ in pairs])
+        fill = {b: int(((lengths <= b) & (lengths > lo)).sum())
+                for lo, b in zip((0,) + LENGTH_BUCKETS[:-1], LENGTH_BUCKETS)}
+        fill[LENGTH_BUCKETS[-1]] += int((lengths > LENGTH_BUCKETS[-1]).sum())  # truncated to 257
+        n_with_spec = sum(i["has_spectrum"] for i, _ in pairs)
+        log(f"raw-alert host ms: {host_s * 1e3:.1f} ms to read and decode {n} alerts from "
+            f"{n_objects} directories ({n / host_s:.1f} alerts/s, one host thread) [{card}]")
+        log(f"  alerts by length bucket {fill}; {n_with_spec} with a spectrum")
+        split = host_split(data_dir)
+        log(f"  host split, ms over the corpus: {', '.join(f'{k} {v:.1f}' for k, v in split.items())} "
+            f"[{card}]")
+        if n < 0.9 * n_objects * alerts_per_object or min(fill.values()) == 0:
+            raise SystemExit(f"the raw corpus gave {n} alerts, length buckets {fill}")
+
+        # the counted run, from the directories (bf16, binned)
+        counters = zero_counters()
+        walked = merge_scan.walked_rows(dev) if on_card else torch.zeros(1)
+        walked.zero_()
+        sync()
+        summary = serve_alert_stream(model, iter_alert_samples(data_dir), batch_size=batch_size,
+                                     device=dev)
+        launches = _kernel_launches(counters)
+        probs = np.stack([r["probs"] for r in summary["results"]])
+        sums = probs.sum(axis=1)
+        if probs.shape != (n, model.num_classes) or not np.isfinite(probs).all() \
+                or float(np.abs(sums - 1).max()) > 1e-3:
+            raise SystemExit(f"raw serving output not finite rows of ({n}, {model.num_classes}) "
+                             "summing to 1 within 1e-3")
+        if [(r["object_id"], r["jd"]) for r in summary["results"]] != \
+                [(i["object_id"], i["jd"]) for i, _ in pairs]:
+            raise SystemExit("raw serving results are not in arrival order")
+        log(f"raw-alert serving bf16 from the directories: {n} alerts in {summary['seconds']:.4f} s, "
+            f"{summary['alerts_per_sec']:.1f} alerts/s, host reading and decoding included "
+            f"(batch_size={batch_size}, binned) [{card}]; max |sum-1| {float(np.abs(sums - 1).max()):.3g}")
+        log(f"launches in that run: K1 {launches['merge_scan']}, K2 {launches['masked_attention']}, "
+            f"K3f {launches['ln_gelu_fwd']} [{card}] (all: {launches})")
+        log(f"K1 rows walked with the recurrence in that run: {int(walked.item())} (0 required)")
+        if on_card:
+            _require_serving_launches(launches, walked, "the raw-alert serving path")
+
+        # the same alerts from the samples already read: the device side alone
+        sync()
+        again = serve_alert_stream(model, iter(pairs), batch_size=batch_size, device=dev)
+        log(f"  the same {n} alerts from samples already in memory: {again['seconds']:.4f} s, "
+            f"{again['alerts_per_sec']:.1f} alerts/s; host read+decode is "
+            f"{host_s / (host_s + again['seconds']) * 100:.1f}% of read+serve [{card}]")
+        got = np.stack([r["probs"] for r in again["results"]])
+        if not np.allclose(got, probs, rtol=0, atol=2e-2):
+            raise SystemExit("serving from directories and from samples disagree beyond bf16")
+    rate = summary["alerts_per_sec"]
+    del summary, again
+
+    # f32, TF32 off, first n_parity alerts
+    sub = pairs[:n_parity]
+    samples = [s for _, s in sub]
+    checks = {}
+    with no_tf32():
+        def served(**kw):
+            out = serve_alert_stream(model32, iter(sub), batch_size=batch_size, device=dev, **kw)
+            return np.stack([r["probs"] for r in out["results"]])
+
+        binned, arrival = served(binned=True), served(binned=False)
+        plain = served(binned=False, kernels=False)
+        fused = FusedSpectraStream(model32, device=dev)(samples, length_buckets=LENGTH_BUCKETS)
+        routed = RoutedAlertStream(model32, device=dev)(samples, length_buckets=LENGTH_BUCKETS)
+        checks["binned vs arrival order"] = float(np.abs(binned - arrival).max())
+        checks["RoutedAlertStream vs FusedSpectraStream"] = float(np.abs(routed - fused).max())
+        checks["kernel path vs kernels=False"] = float(np.abs(arrival - plain).max())
+        for what, err in checks.items():
+            log(f"raw-alert f32 (TF32 off), {len(sub)} alerts: {what} max|dprob| = {err:.3g} "
+                f"(<= 1e-4 required) [{card}]")
+        bad = [w for w, e in checks.items() if not e <= 1e-4]
+        if bad:
+            raise SystemExit(f"raw-alert f32 serving disagrees: {bad}")
+
+        # the overlapped feeder on records carrying stamps, against the serial router
+        records = _stamp_records(sub)
+        batches = [records[i:i + 64] for i in range(0, len(records), 64)]
+        router = FusedSpectraStream(model32, device=dev)
+        want = [router(assemble_samples(rb), length_buckets=LENGTH_BUCKETS) for rb in batches]
+        for mode in ("thread", "process"):
+            t0 = time.perf_counter()
+            feeder = OverlappedServingFeeder(router, n_workers=2, depth=2, mode=mode,
+                                             length_buckets=LENGTH_BUCKETS)
+            got = list(feeder.serve(iter(batches)))
+            secs = time.perf_counter() - t0
+            err = max(float(np.abs(g - w).max()) for g, w in zip(got, want)) \
+                if len(got) == len(want) else float("inf")
+            checks[f"OverlappedServingFeeder {mode} vs serial"] = err
+            log(f"OverlappedServingFeeder mode={mode}: {len(got)} batches of 64 records with stamps "
+                f"in {secs:.2f} s (worker start included); max|dprob| vs the serial router "
+                f"{err:.3g} (<= 1e-6 required) [{card}]")
+            if not err <= 1e-6:
+                raise SystemExit(f"OverlappedServingFeeder ({mode}) disagrees with the serial router")
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"launches": launches, "alerts": n, "alerts_per_s": rate, "host_ms": host_s * 1e3,
+            "host_split_ms": split, "checks": checks}
 
 
 
@@ -1320,6 +1554,7 @@ def main() -> int:
     card = device_and_build()
     records, ladder_launches = check_kernels()
     serving = check_serving(card=card)
+    raw = check_raw_serving(serving.pop("model"), serving.pop("model32"), card)
     workdir = REPO / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
     try:
@@ -1328,7 +1563,9 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for r in records:
-        by_path = {"serving": serving["launches"][r["name"]], "training": training["launches"][r["name"]],
+        by_path = {"serving": serving["launches"][r["name"]],
+                   "raw_serving": raw["launches"][r["name"]],
+                   "training": training["launches"][r["name"]],
                    "ladder": ladder_launches[r["name"]]}
         path = ("ladder" if r["name"].startswith(LADDER_PREFIX) else
                 "training" if r["name"] in TRAINING_KERNELS else "serving")

@@ -35,6 +35,15 @@ MODULES = [
     "applecider_tpu_torch.models.fusion",
     "applecider_tpu_torch.infer",
     "applecider_tpu_torch.infer.stream",
+    "applecider_tpu_torch.infer.serve",
+    "applecider_tpu_torch.infer.feeder",
+    "applecider_tpu_torch.preprocessing",
+    "applecider_tpu_torch.preprocessing.config",
+    "applecider_tpu_torch.preprocessing.table",
+    "applecider_tpu_torch.preprocessing.fitsio",
+    "applecider_tpu_torch.preprocessing.photometry",
+    "applecider_tpu_torch.preprocessing.spectra",
+    "applecider_tpu_torch.preprocessing.builder",
     "applecider_tpu_torch.utils",
     "applecider_tpu_torch.utils.weights",
     "applecider_tpu_torch.datasets",
@@ -53,11 +62,12 @@ MODULES = [
 
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a fresh interpreter whose import
-    system refuses ``jax``, ``flax`` and ``applecider_tpu``."""
+    system refuses ``jax``, ``flax``, ``applecider_tpu`` and ``pandas`` (the
+    card's machine has no pandas)."""
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
 
-        BLOCKED = ("jax", "jaxlib", "flax", "optax", "applecider_tpu")
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "applecider_tpu", "pandas")
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
@@ -112,8 +122,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     """With no usable GPU, the default device raises; ``device="cpu"`` runs."""
     from applecider_tpu_torch.config import load_defaults
     from applecider_tpu_torch.device import resolve_device
+    from applecider_tpu_torch.infer.serve import serve_alert_stream
     from applecider_tpu_torch.infer.stream import (
-        AlertStreamPipeline, FusedSpectraStream, LengthBinnedFeeder,
+        AlertStreamPipeline, FusedSpectraStream, LengthBinnedFeeder, RoutedAlertStream,
     )
     from applecider_tpu_torch.models import build_fusion_model
     from applecider_tpu_torch.train.trainer import Trainer
@@ -139,6 +150,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LengthBinnedFeeder(stream)
     LengthBinnedFeeder(stream, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RoutedAlertStream(model)
+    RoutedAlertStream(model, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_alert_stream(model, iter([]))
+    assert serve_alert_stream(model, iter([]), device="cpu")["n_alerts"] == 0
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(model, cfg, REPO / "build" / "unused")
 

@@ -9,6 +9,8 @@ the 2e-6 between two JAX pipelines and inside the 1e-4 logits bound of
 tests/test_full_fusion_parity.py.
 """
 
+from collections.abc import Mapping
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +24,7 @@ from applecider_tpu_torch.config import load_defaults
 from applecider_tpu_torch.infer import stream as ts
 from applecider_tpu_torch.models import build_fusion_model
 from applecider_tpu_torch.testing import make_alert_samples
-from applecider_tpu_torch.utils.weights import from_jax_params
+from applecider_tpu_torch.utils.weights import _KERNEL_AXES, from_jax_params
 
 GRID = np.linspace(4500.0, 7980.0, 128).astype(np.float32)
 TINY = [
@@ -34,18 +36,40 @@ TINY = [
 ]
 
 
+def _flax_params(shapes: Mapping, state: dict, prefix=()) -> dict:
+    """The port's ``state`` laid out as the flax ``shapes`` tree: the
+    inverse of ``from_jax_params``."""
+    out = {}
+    for key, leaf in shapes.items():
+        if isinstance(leaf, Mapping):
+            out[key] = _flax_params(leaf, state, (*prefix, key))
+            continue
+        arr = state[".".join((*prefix, "weight" if key in ("kernel", "scale") else key))].numpy()
+        if key == "kernel":
+            arr = arr.transpose(np.argsort(_KERNEL_AXES[arr.ndim]))
+        assert arr.shape == leaf.shape, (prefix, key)
+        out[key] = arr
+    return out
+
+
 @pytest.fixture(scope="module")
 def pair():
-    """(JAX task, its params, the port's model with those weights), f32."""
+    """(JAX task, its params, the port's model with those weights), f32,
+    small widths, direct convs. The weights are drawn by the port and laid
+    out as flax params (``jax.eval_shape`` gives the tree without running
+    the flax init), then carried back with ``from_jax_params``."""
     cfg = _fusion_task(tiny=True, compute_dtype="float32").config
     cfg.set("model.SpectraNet.conv_mode", "direct")
     task = AppleCiderTask(cfg)
-    params = task.init(jax.random.PRNGKey(0), _fusion_batch(2, tiny=True))["params"]
+    shapes = jax.eval_shape(lambda k: task.init(k, _fusion_batch(2, tiny=True)),
+                            jax.random.PRNGKey(0))["params"]
     tcfg = load_defaults()
     for k, v in TINY + [("train.compute_dtype", "float32")]:
         tcfg.set(k, v)
+    drawn = build_fusion_model(tcfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    params = _flax_params(shapes, drawn.state_dict())
     model = build_fusion_model(tcfg, device="cpu")
-    model.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params)))
+    model.load_state_dict(from_jax_params(params))
     return task, params, model
 
 

@@ -1,7 +1,10 @@
 """The port's host packing == the JAX package's, bit for bit; its device
 preprocessing (merge, featurisation, spectrum resampling) == the JAX
 functions on the same inputs (merge/featurize rtol 1e-5, atol 1e-6: f32
-segment sums may be reordered; resample atol 1e-5)."""
+segment sums may be reordered; resample atol 1e-5); its
+``RoutedAlertStream`` == the JAX one with the same weights (atol 1e-5, the
+bound of test_torch_pipeline.py), and the ``skip_spectra`` pipeline == the
+full one on batches without spectra."""
 
 from functools import partial
 
@@ -15,6 +18,7 @@ from applecider_tpu.infer import stream as js
 from applecider_tpu_torch.infer import stream as ts
 from applecider_tpu_torch.ops.merge_scan import seg_ids
 from applecider_tpu_torch.testing import make_alert_samples
+from tests.test_torch_pipeline import GRID, pair  # noqa: F401  (module fixture)
 
 
 def _sample(rng, times, with_spec=False, n_spec=80):
@@ -184,3 +188,65 @@ def test_median_exact_even_and_odd(rng):
         x = rng.normal(size=(3, n)).astype(np.float32)
         np.testing.assert_array_equal(ts._median_exact(torch.from_numpy(x)).numpy(),
                                       np.median(x, axis=-1).astype(np.float32))
+
+
+# ------------------------------------------------ spectrum-presence routing
+def _routed_samples(rng, flags):
+    samples = make_alert_samples(len(flags), seed=int(rng.integers(1 << 30)), spectrum_frac=0.0,
+                                 length_range=(3, 32), spectrum_points=(2, 2))
+    for s, f in zip(samples, flags):
+        if f:
+            n = int(rng.integers(20, 700))  # > 512 points exercises decimation
+            s["spec_wl"] = np.sort(rng.uniform(4000, 8500, n)).astype(np.float32)
+            s["spec_flux"] = rng.normal(size=n).astype(np.float32)
+    return samples
+
+
+@pytest.fixture(scope="module")
+def routers(pair):
+    """The JAX and the port ``RoutedAlertStream`` with the same weights, one
+    batch bucket (8) and one length bucket (32): one JAX compile a pipeline."""
+    task, params, model = pair
+    jr = js.RoutedAlertStream(task, batch_buckets=(8,), wave_grid=GRID)
+    tr = ts.RoutedAlertStream(model, batch_buckets=(8,), wave_grid=GRID, device="cpu")
+    return params, jr, tr
+
+
+@pytest.mark.parametrize("flags", [(True, False, True, False, False, True, False),
+                                   (True,) * 3, (False,) * 5, ()],
+                         ids=["mixed", "all_spectra", "no_spectra", "empty"])
+def test_routed_stream_matches_jax(rng, routers, flags):
+    params, jr, tr = routers
+    samples = _routed_samples(rng, flags)
+    got = tr(samples, length_buckets=(32,))
+    want = np.asarray(jr(params, samples, length_buckets=(32,)))
+    assert got.shape == want.shape == (len(flags), 5)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_routed_stream_pads_to_its_buckets(rng, pair):
+    _, _, model = pair
+    router = ts.RoutedAlertStream(model, batch_buckets=(2, 4), wave_grid=GRID, device="cpu")
+    samples = _routed_samples(rng, (True, False, False, False, True))
+    n, parts = router.place(samples, length_buckets=(32,))
+    (full, full_idx), (nospec, nospec_idx) = parts
+    assert n == 5 and full_idx == [0, 4] and nospec_idx == [1, 2, 3]
+    assert full["photo_t"].shape == (2, 32) and full["spec_wl"].shape == (2, 512)
+    assert nospec["photo_t"].shape == (4, 32) and nospec["spec_wl"].shape == (4, 1)
+    torch.testing.assert_close(nospec["image"][3], nospec["image"][0])  # pad row tiles row 0
+    probs = router.run_placed((n, parts))()
+    np.testing.assert_allclose(probs, router(samples, length_buckets=(32,)), rtol=0, atol=0)
+
+
+def test_skip_spectra_equals_full_pipeline(rng, pair):
+    """On batches with no spectrum the skip_spectra pipeline (one zero
+    SpectraNet row, broadcast) equals the full one (a zero row each)."""
+    _, _, model = pair
+    samples = _routed_samples(rng, (False,) * 6)
+    raw = {k: torch.from_numpy(v) for k, v in
+           ts.pack_alert_batch(samples, max_photo=32, max_spec=16).items()}
+    full = ts.AlertStreamPipeline(model, wave_grid=GRID, device="cpu")(raw)
+    skip = ts.AlertStreamPipeline(model, wave_grid=GRID, device="cpu", skip_spectra=True)(raw)
+    np.testing.assert_allclose(skip.numpy(), full.numpy(), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ts.AlertStreamPipeline(model, device="cpu", skip_spectra=True, compact_spectra=True)
