@@ -21,6 +21,7 @@ from applecider_tpu_torch.models.baseline_cls import BaselineCLSModule
 from applecider_tpu_torch.models.layers import Linear, init_weights
 from applecider_tpu_torch.models.spectranet import SpectraNetModule
 from applecider_tpu_torch.ops.losses import cross_entropy, focal_loss
+from applecider_tpu_torch.registry import register_model
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -96,6 +97,10 @@ def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dt
     sc = cfg["model"]["SpectraNet"]
     ac = cfg["model"]["AstroMiNN"]
     fc = cfg["model"]["AppleCider"]
+    if str(fc.get("spectra_encoder", "standard")) != "standard":
+        raise NotImplementedError(
+            f"model.AppleCider.spectra_encoder = {fc['spectra_encoder']!r} is not ported yet "
+            "(ROADMAP.md Queue A item 6, the TriPool encoder)")
     photometry = BaselineCLSModule(int(pc["d_model"]), int(pc["n_heads"]), int(pc["n_layers"]),
                                    float(pc["dropout"]), dtype=dt)
     spectra = SpectraNetModule(
@@ -115,6 +120,11 @@ def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dt
         num_classes=int(fc["num_classes"]))
     init_weights(model, generator)
     return model.to(dev).eval().requires_grad_(False)
+
+
+# the names the JAX package registers its AppleCiderTask under
+for _name in ("AppleCider", "Fusion", "applecider_tpu.models.fusion.AppleCiderTask"):
+    register_model(build_fusion_model, name=_name)
 
 
 def fusion_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: Config

@@ -6,8 +6,8 @@ with csv rows winning, mjd rebased to the first detection.
 
 ``photometry.csv`` is read with ``preprocessing.table`` (no pandas) into
 the same columns ``pandas.read_csv`` gives. The host merge
-(``merge_groups``, ``merge_by_filter``) is training-side preprocessing and
-is not ported; serving merges on the device (``infer.stream``).
+(``merge_groups``, ``merge_weighted``, ``merge_by_filter``) builds the
+training corpus; serving merges on the device (``infer.stream``, K1).
 
 Tables are plain dicts of NumPy column arrays.
 """
@@ -18,7 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
-from applecider_tpu_torch.preprocessing.config import JD_MJD_OFFSET
+from applecider_tpu_torch.preprocessing.config import BAND2FID, JD_MJD_OFFSET
 from applecider_tpu_torch.preprocessing.table import read_csv
 
 LOG10 = np.log(10.0)
@@ -166,3 +166,55 @@ def load_photometry(obj_id: str, data_dir: Path, alerts: list | None = None) -> 
         return uni
     uni["mjd"] = uni["mjd"] - uni["mjd"].min()
     return uni
+
+
+def merge_groups(time: np.ndarray, dt_days: float) -> np.ndarray:
+    """Greedy window starts over a sorted time array: group g spans
+    [start[g], start[g+1]), every point within dt_days of the group's
+    first point."""
+    starts = []
+    i, n = 0, len(time)
+    while i < n:
+        starts.append(i)
+        i = int(np.searchsorted(time, time[i] + dt_days, side="right"))
+    return np.asarray(starts, dtype=np.int64)
+
+
+def merge_weighted(time, flux, err, dt_days: float, eps: float = 1e-8):
+    """Inverse-error-weighted collapse of greedy 12 h windows."""
+    time = np.asarray(time, dtype=np.float64)
+    flux = np.asarray(flux, dtype=np.float64)
+    err = np.asarray(err, dtype=np.float64)
+    if len(time) == 0:
+        return time, flux, err
+    starts = merge_groups(time, dt_days)
+    w = 1.0 / (err + eps)
+    wsum = np.add.reduceat(w, starts)
+    t_out = np.add.reduceat(w * time, starts) / wsum
+    f_out = np.add.reduceat(w * flux, starts) / wsum
+    e_out = np.add.reduceat(w * err, starts) / wsum
+    return t_out, f_out, e_out
+
+
+def merge_by_filter(photo: dict, delta_t_hours: float = 12.0) -> dict:
+    """Per-band merge; returns a merged table with jd reconstructed per band."""
+    out = {c: [] for c in ("mjd", "flux", "flux_error", "jd", "fid")}
+    dt_days = delta_t_hours / 24.0
+    for fid in BAND2FID.values():
+        sel = photo["fid"] == fid
+        if not sel.any():
+            continue
+        order = np.argsort(photo["mjd"][sel], kind="stable")
+        mjd = photo["mjd"][sel][order]
+        flux = photo["flux"][sel][order]
+        err = photo["flux_error"][sel][order]
+        jd_offset = photo["jd"][sel].min() - photo["mjd"][sel].min()
+        t, f, e = merge_weighted(mjd, flux, err, dt_days)
+        out["mjd"].append(t)
+        out["flux"].append(f)
+        out["flux_error"].append(e)
+        out["jd"].append(t + jd_offset)
+        out["fid"].append(np.full(len(t), fid, dtype=np.int16))
+    if not out["mjd"]:
+        return {c: np.empty(0) for c in out}
+    return {c: np.concatenate(v) for c, v in out.items()}

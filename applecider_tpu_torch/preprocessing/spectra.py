@@ -1,15 +1,17 @@
-"""Spectra ingest for serving (counterpart of ``applecider_tpu/
-preprocessing/spectra.py``: ``read_spectra_csv``, ``extract_spectrum_time_mjd``,
-``iso_to_mjd``, ``raw_spectrum_columns``):
+"""Spectra ingest, resampling and normalization (counterpart of
+``applecider_tpu/preprocessing/spectra.py``):
 
 * column-name sniffing for wavelength/flux;
 * observation time from MJD columns, JD columns (-2400000.5), or an ISO
-  ``observed_at`` timestamp (median over rows for numeric columns).
+  ``observed_at`` timestamp (median over rows for numeric columns);
+* for the training corpus, linear interpolation with extrapolation onto the
+  fixed 4500-7980 A grid on the host, then (x - mean)/MAD normalization with
+  a std fallback when the MAD is 0 (``preprocess_spectrum``).
 
 ``spectra.csv`` is read with ``preprocessing.table`` (no pandas); a "frame"
 here is a ``table.Table``, and ``pd.to_numeric(errors="coerce")`` is
-``table.to_numeric``. Resampling onto the grid and MAD normalisation run on
-the device (``infer.stream``).
+``table.to_numeric``. Serving resamples and normalises on the device
+(``infer.stream``) instead.
 """
 
 from __future__ import annotations
@@ -37,6 +39,36 @@ def iso_to_mjd(iso: str) -> float:
     if dt.tzinfo is None:
         dt = dt.replace(tzinfo=timezone.utc)
     return (dt - _MJD_EPOCH).total_seconds() / 86400.0
+
+
+def mad(x: np.ndarray) -> float:
+    """Median absolute deviation (scale=1), NaN-omitting."""
+    x = np.asarray(x, dtype=np.float64)
+    med = np.nanmedian(x)
+    return float(np.nanmedian(np.abs(x - med)))
+
+
+def interp_with_extrapolation(x: np.ndarray, y: np.ndarray, x_new: np.ndarray) -> np.ndarray:
+    """Linear interp; linear extrapolation from the boundary segments."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    x_new = np.asarray(x_new, dtype=np.float64)
+    order = np.argsort(x, kind="stable")
+    x, y = x[order], y[order]
+    finite = np.isfinite(x) & np.isfinite(y)
+    x, y = x[finite], y[finite]
+    if len(x) < 2:
+        return np.full_like(x_new, np.nan)
+    y_new = np.interp(x_new, x, y)
+    left = x_new < x[0]
+    if left.any():
+        slope = (y[1] - y[0]) / (x[1] - x[0])
+        y_new[left] = y[0] + slope * (x_new[left] - x[0])
+    right = x_new > x[-1]
+    if right.any():
+        slope = (y[-1] - y[-2]) / (x[-1] - x[-2])
+        y_new[right] = y[-1] + slope * (x_new[right] - x[-1])
+    return y_new
 
 
 def _is_missing(v) -> bool:
@@ -101,3 +133,19 @@ def raw_spectrum_columns(df: Optional[Table]) -> Optional[tuple[np.ndarray, np.n
         return None
     order = np.argsort(x[good], kind="stable")
     return x[good][order], y[good][order]
+
+
+def preprocess_spectrum(df: Optional[Table], wave_grid: np.ndarray) -> Optional[np.ndarray]:
+    """A spectra table -> MAD-normalized flux on the fixed grid (float32),
+    or None."""
+    raw = raw_spectrum_columns(df)
+    if raw is None:
+        return None
+    x, y = raw
+    y_grid = interp_with_extrapolation(x, y, wave_grid.astype(np.float64))
+    mean = float(np.nanmean(y_grid))
+    scale = mad(y_grid)
+    if not np.isfinite(scale) or scale == 0.0:
+        std = float(np.nanstd(y_grid))
+        scale = std if np.isfinite(std) and std > 0 else 1.0
+    return ((y_grid - mean) / scale).astype(np.float32)

@@ -18,6 +18,11 @@ them here and gives the same columns on the files the readers see:
 * repeated names become ``name.1``, ``name.2``, …, an empty name
   ``Unnamed: i``; blank lines are skipped; short rows are padded with
   missing cells, and a row longer than the header raises.
+
+``Table.from_records`` and ``write_csv`` make and write tables as
+``pandas.DataFrame(records)`` and ``DataFrame.to_csv(index=False)`` do:
+columns in order of first appearance, int64 / float64 / text columns,
+floats as NumPy's shortest repr, a missing cell empty.
 """
 
 from __future__ import annotations
@@ -146,6 +151,54 @@ class Table:
     def take(self, rows: np.ndarray) -> "Table":
         """The rows selected by a boolean mask or an index array."""
         return Table({k: v[rows] for k, v in self.data.items()})
+
+    @classmethod
+    def from_records(cls, records: list[dict], columns=()) -> "Table":
+        """Records as columns: ``columns`` first, then every other key in
+        order of first appearance; a key a record lacks is missing (NaN)."""
+        names = list(columns)
+        for rec in records:
+            names += [k for k in rec if k not in names]
+        return cls({n: _typed([rec.get(n, np.nan) for rec in records]) for n in names})
+
+
+def _is_nan(v) -> bool:
+    return isinstance(v, (float, np.floating)) and np.isnan(v)
+
+
+def _typed(values: list) -> np.ndarray:
+    """A column of Python values typed as pandas types it: int64 when every
+    value is an integer, float64 when every value is a number (missing ones
+    NaN), else text (object)."""
+    def integer(v):
+        return isinstance(v, (int, np.integer)) and not isinstance(v, (bool, np.bool_))
+
+    if values and all(integer(v) for v in values):
+        return np.asarray(values, np.int64)
+    if values and all(integer(v) or isinstance(v, (float, np.floating)) for v in values):
+        return np.asarray(values, np.float64)
+    out = np.empty(len(values), object)
+    out[:] = values
+    return out
+
+
+def _cell(v) -> str:
+    if _is_nan(v):
+        return ""
+    if isinstance(v, (float, np.floating)):
+        return str(np.float64(v))
+    return str(v)
+
+
+def write_csv(table: Table, path: str | Path) -> None:
+    """``table`` as CSV with a header row, as ``DataFrame.to_csv(path,
+    index=False)`` writes it (minimal quoting, "\\n" line ends)."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(table.columns)
+        cols = [table[c] for c in table.columns]
+        for i in range(len(table)):
+            w.writerow([_cell(c[i]) for c in cols])
 
 
 def read_csv(path: str | Path) -> Table:

@@ -17,6 +17,15 @@ stops early on the validation loss, keeps the best checkpoint by validation
 accuracy, appends one record per epoch to ``metrics.jsonl`` and checkpoints
 ``{params, opt_state, step, epoch}`` with ``torch.save``; a later ``fit``
 resumes from ``last`` at the next epoch.
+
+``predict`` runs a loader in eval mode without autograd and returns the
+logits (or, with ``model.AppleCider.use_probabilities``, the softmax) in
+dataset order; ``restore_weights`` loads the weights of ``best``, or of
+``last`` where there is no ``best``, for inference.
+
+The JAX Trainer's options that the port has not yet (ROADMAP.md Queue A
+item 2 for the trainer's, item 7 for the parallel ones) raise when a config
+sets them away from their defaults (``refuse_unported``); none is ignored.
 """
 
 from __future__ import annotations
@@ -36,9 +45,38 @@ from applecider_tpu_torch.ops.dropout import DropoutRNG, attach_dropout_rng
 from applecider_tpu_torch.train.optim import EarlyStopping, clip_by_global_norm_, make_optimizer
 
 
+_TRAINER_ITEM = "ROADMAP.md Queue A item 2 (trainer options)"
+_PARALLEL_ITEM = "ROADMAP.md Queue A item 7 (multi-GPU and multi-host)"
+
+
+def refuse_unported(cfg: Config) -> None:
+    """Raise for each option the JAX Trainer has and the port has not yet,
+    when ``cfg`` sets it away from its default, naming the option and its
+    ROADMAP item."""
+    unported = [
+        ("train.freeze_params", bool(cfg.get_path("train.freeze_params", [])), _TRAINER_ITEM),
+        ("train.grad_accum_steps", int(cfg.get_path("train.grad_accum_steps", 1)) > 1,
+         _TRAINER_ITEM),
+        ("train.plateau_factor", float(cfg.get_path("train.plateau_factor", 0.0)) > 0,
+         _TRAINER_ITEM),
+        ("train.ema_decay", float(cfg.get_path("train.ema_decay", 0.0)) > 0, _TRAINER_ITEM),
+        ("train.remat", bool(cfg.get_path("train.remat", False)), _TRAINER_ITEM),
+        ("parallel.multihost.enable", bool(cfg.get_path("parallel.multihost.enable", False)),
+         _PARALLEL_ITEM),
+        ("parallel.mesh_shape", list(cfg.get_path("parallel.mesh_shape", [-1, 1])) != [-1, 1],
+         _PARALLEL_ITEM),
+    ]
+    for name, is_set, item in unported:
+        if is_set:
+            raise NotImplementedError(
+                f"{name} = {cfg.get_path(name)!r} is not ported to applecider_tpu_torch yet "
+                f"({item}); leave it at its default")
+
+
 class Trainer:
     def __init__(self, model: nn.Module, cfg: Config, workdir: str | Path, device="cuda",
                  seed: int | None = None):
+        refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).train().requires_grad_(True)
@@ -123,6 +161,36 @@ class Trainer:
         self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])
         return int(state["epoch"]) + 1
+
+    def restore_weights(self) -> str:
+        """Load the weights of ``best``, or of ``last`` where there is no
+        ``best``, for inference; returns the tag loaded."""
+        tag = "best" if self._ckpt_path("best").exists() else "last"
+        path = self._ckpt_path(tag)
+        if not path.exists():
+            raise FileNotFoundError(f"no checkpoint under {path.parent}")
+        state = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state["params"])
+        return tag
+
+    @torch.no_grad()
+    def predict(self, loader, kernels: bool = True) -> np.ndarray:
+        """(N, C) float32 logits, or probabilities when
+        ``model.AppleCider.use_probabilities`` is set, for every sample
+        ``loader`` yields, in its order, in eval mode without autograd."""
+        probs = bool(self.cfg.get_path("model.AppleCider.use_probabilities", False))
+        self.model.eval()
+        out = []
+        for host_batch in loader:
+            photometry, photo_mask, metadata, images, spectra, _ = self.to_device(
+                to_tensor(host_batch))
+            logits = self.model(photometry, photo_mask, metadata, images, spectra,
+                                kernels=kernels)
+            out.append(torch.softmax(logits.float(), dim=-1) if probs else logits)
+        self.model.train()
+        if not out:
+            return np.zeros((0, self.model.num_classes), np.float32)
+        return torch.cat(out).float().cpu().numpy()
 
     def _log(self, record: dict) -> None:
         with open(self._log_file, "a") as f:

@@ -69,7 +69,22 @@ Phases, in order; any failure exits non-zero before the result line:
 5. training parity: one f32 step (TF32 off, 32 samples, dropout live) on
    the kernel path and on the plain path with the same weights and the
    same dropout draws;
-6. one JSON line describing each kernel, then the result line.
+6. the user's workflow through its own entry points, at the published
+   widths: a raw corpus (``testing.make_corpus``, 96 learnable objects, 8
+   alerts each, 30% with a spectrum) -> ``preprocess_data`` serially and in
+   a spawn pool of 4 (the same files, every object built; host seconds) ->
+   ``AppleCiderRuntime("configs/fusion.toml")`` ``prepare`` and ``train``
+   for 3 epochs of batch 32 in bf16 (K4 forward/backward and K3b launched
+   per step, K2 and K3f per validation batch, read from that run alone;
+   loss finite, parameters moved, ``best.pt`` and ``last.pt``) -> ``infer``
+   (finite (n, 5); kernel path against plain path in f32, TF32 off, <=
+   1e-4) -> ``serve`` of every alert of the directories (K1, K2 and K3f
+   launched, K1 walking no row; within 1e-6 of ``serve_alert_stream`` run
+   directly on a model loaded from ``best.pt`` with the training stats) ->
+   ``python -m applecider_tpu_torch.infer.cli`` as a subprocess (exit 0,
+   the same alert count) -> ``warmup`` twice (every length bucket x every
+   spectra bucket at batch 1024);
+7. one JSON line describing each kernel, then the result line.
 
 It imports nothing of JAX.
 """
@@ -1548,6 +1563,241 @@ def check_training_parity(workdir: Path, batch_size: int = 32, lr: float = 1e-4)
             "k3b_in_step_err": k3b_err, "spectra_rel_grad_err": s_err, "pool_flips": flips}
 
 
+# ------------------------------------------------------------- phase 6
+def _toml(tree: dict, prefix: str = "") -> str:
+    """A nested dict of TOML values as TOML tables (keys with dots quoted)."""
+    def key(k):
+        return f'"{k}"' if "." in k else k
+
+    scalars = {k: v for k, v in tree.items() if not isinstance(v, dict)}
+    lines = [f"[{prefix}]"] if prefix and scalars else []
+    lines += [f"{key(k)} = {json.dumps(v)}" for k, v in scalars.items()]
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            lines.append(_toml(v, f"{prefix}.{key(k)}" if prefix else key(k)))
+    return "\n".join(lines) + "\n"
+
+
+def _same_outputs(a: Path, b: Path) -> list:
+    """The files two preprocessing runs wrote that differ: the CSVs as text
+    with each run's root taken out of the paths, the npz files key by key,
+    bit for bit."""
+    differ = []
+    for f in sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file()):
+        x, y = a / f, b / f
+        if not y.exists():
+            differ.append(str(f))
+        elif f.suffix == ".csv":
+            if x.read_text().replace(str(a), "") != y.read_text().replace(str(b), ""):
+                differ.append(str(f))
+        else:
+            with np.load(x, allow_pickle=True) as u, np.load(y, allow_pickle=True) as v:
+                same = u.files == v.files and all(
+                    u[k].dtype == v[k].dtype and u[k].shape == v[k].shape and (
+                        list(u[k].ravel()) == list(v[k].ravel()) if u[k].dtype == object
+                        else np.atleast_1d(u[k]).tobytes() == np.atleast_1d(v[k]).tobytes())
+                    for k in u.files)
+            if not same:
+                differ.append(str(f))
+    return differ
+
+
+# launches per step: K4 forward and backward in each of the 4 attention
+# layers, K3 forward and backward in each of the 5 SpectraNet blocks; per
+# evaluation or inference batch (no autograd): K2 in each attention layer,
+# K3f in each SpectraNet block
+EVAL_KERNELS = {"masked_attention": 4, "ln_gelu_fwd": 5}
+
+
+def check_workflow(card: str, n_objects: int = 96, epochs: int = 3, batch_size: int = 32,
+                   device="cuda", model_overrides: dict | None = None) -> dict:
+    """Phase 6: the user's workflow through its own entry points, at the
+    published widths. A raw corpus -> ``preprocess_data`` (serially and in
+    a pool of 4, the same files) -> ``AppleCiderRuntime("configs/fusion.toml")``
+    ``prepare``/``train`` in bf16 -> ``checkpoints/{best,last}.pt`` ->
+    ``infer`` (kernel path against plain path in f32, TF32 off) -> ``serve``
+    of every alert of the raw directories (against ``serve_alert_stream``
+    run directly on a model loaded from ``best.pt``) -> the
+    ``applecider-serve-torch`` CLI as a subprocess -> ``warmup`` twice.
+    ``device`` and ``model_overrides`` (e.g. small widths) are for a dry run
+    on the CPU."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from applecider_tpu_torch.datasets.photo_dataset import load_photo_stats
+    from applecider_tpu_torch.infer.serve import iter_alert_samples, serve_alert_stream
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.ops import merge_scan
+    from applecider_tpu_torch.preprocessing.cli import preprocess_data
+    from applecider_tpu_torch.preprocessing.table import read_csv
+    from applecider_tpu_torch.testing import make_corpus
+    from applecider_tpu_torch.train.runtime import AppleCiderRuntime
+
+    result: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workflow_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        raw, labels = make_corpus(tmp, n_objects=n_objects, seed=11, learnable=True,
+                                  n_photometry=(20, 100), spectrum_frac=0.3, n_alerts=8)
+        log(f"workflow corpus: {n_objects} object directories (learnable, 20-100 points, 8 alerts, "
+            f"30% with a spectrum) written in {time.perf_counter() - t0:.1f} s")
+
+        # 1. preprocessing, serial and in a spawn pool of 4
+        secs = {}
+        for workers in (0, 4):
+            t0 = time.perf_counter()
+            preprocess_data(str(raw), str(labels), str(tmp / f"out{workers}"), num_workers=workers)
+            secs[workers] = time.perf_counter() - t0
+        out = tmp / "out0"
+        built = read_csv(out / "built_all.csv")
+        differ = _same_outputs(out, tmp / "out4")
+        n_split = {s: len(read_csv(out / f"manifest_{s}.csv")) for s in ("train", "val", "test")}
+        log(f"preprocess_data: {len(built)} of {n_objects} objects built, splits {n_split}; "
+            f"serial {secs[0]:.2f} s ({n_objects / secs[0]:.1f} objects/s), 4 workers "
+            f"{secs[4]:.2f} s ({n_objects / secs[4]:.1f} objects/s), host [{card}]; "
+            f"files differing between the two: {differ}")
+        if len(built) != n_objects or differ:
+            raise SystemExit(f"preprocessing built {len(built)} of {n_objects} objects, or the "
+                             f"serial and pooled runs differ: {differ}")
+        result["preprocess_s"] = secs
+
+        # 2. training through the runtime, bf16, dropout live
+        section = 'applecider_tpu.datasets.fusion_dataset.FusionDataset'
+        overrides = {"train": {"epochs": epochs}, "data_loader": {"batch_size": batch_size},
+                     "data_set": {section: {"manifest_path": str(out / "manifest_train.csv"),
+                                            "stats_event_path": str(out / "photo_stats.npz")}},
+                     **(model_overrides or {})}
+        workdir = tmp / "results"
+        rt = AppleCiderRuntime(REPO / "configs" / "fusion.toml", overrides, workdir=workdir,
+                               device=device)
+        dev = rt.device
+        on_card = dev.type == "cuda"
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize()
+
+        rt.prepare()
+        n_train = len(rt.datasets["train"])
+        val_batches = n_train // batch_size * epochs  # validate binds the same manifest
+        counters = zero_counters()
+        t0 = time.perf_counter()
+        trained = rt.train()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = _kernel_launches(counters)
+        run_dir = trained["run_dir"]
+        history = trained["history"]
+        steps = history[-1]["steps"]
+        records = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        ckpts = {t: (run_dir / "checkpoints" / f"{t}.pt").exists() for t in ("best", "last")}
+        init = rt._task().state_dict()
+        last = torch.load(run_dir / "checkpoints" / "last.pt", map_location=dev,
+                          weights_only=True)["params"]
+        moved = sum(int(not torch.equal(init[k], last[k])) for k in init)
+        log(f"runtime train bf16, full widths: {n_train} training objects, {steps} steps of "
+            f"{batch_size} over {epochs} epochs in {wall:.2f} s (validation and checkpoints "
+            f"included); epoch seconds {[round(r['epoch_seconds'], 3) for r in records]}; "
+            f"train_loss {[round(r['train_loss'], 4) for r in records]}; val_accuracy "
+            f"{[round(r['val_accuracy'], 4) for r in records]} [{card}]")
+        log(f"  {moved} of {len(init)} parameter tensors moved; checkpoints {ckpts}; "
+            f"launches in that run: {launches}")
+        want = {n: per * steps for n, per in TRAINING_KERNELS.items()}
+        want["ln_gelu_fwd"] += EVAL_KERNELS["ln_gelu_fwd"] * val_batches
+        want["masked_attention"] = EVAL_KERNELS["masked_attention"] * val_batches
+        wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+        stray = [n for n in launches if n not in want and launches[n]]
+        if not all(np.isfinite(r["train_loss"]) for r in history) or moved == 0 \
+                or not all(ckpts.values()) or steps != n_train // batch_size * epochs:
+            raise SystemExit("runtime training: loss not finite, no parameter moved, a "
+                             "checkpoint missing or a step short")
+        if on_card and (wrong or stray):
+            raise SystemExit(f"runtime training launches (got, expected): {wrong}; stray {stray}")
+        result["train_launches"] = launches
+
+        # 3. inference from the checkpoint, then f32 kernel path vs plain path
+        counters = zero_counters()
+        preds = rt.infer()
+        infer_launches = _kernel_launches(counters)
+        log(f"runtime infer bf16: predictions {preds.shape}, finite {bool(np.isfinite(preds).all())}; "
+            f"launches {infer_launches}")
+        if preds.ndim != 2 or preds.shape[1] != 5 or not len(preds) or not np.isfinite(preds).all():
+            raise SystemExit("runtime infer did not return finite (n, 5) predictions")
+        rt.set_config("train.compute_dtype", "float32")
+        with no_tf32():
+            got, plain = rt.infer(), rt.infer(kernels=False)
+        rt.set_config("train.compute_dtype", "bfloat16")
+        err = float(np.abs(got - plain).max())
+        log(f"runtime infer f32 (TF32 off) kernel path vs plain path on best.pt: max|dlogit| "
+            f"{err:.3g} (<= 1e-4 required)")
+        if not err <= 1e-4:
+            raise SystemExit("runtime infer: kernel path disagrees with the plain path")
+        result["infer_err"] = err
+
+        # 4. serving every alert of the raw directories with the trained weights
+        n_alerts = sum(1 for _ in iter_alert_samples(raw))
+        counters = zero_counters()
+        walked = merge_scan.walked_rows(dev) if on_card else torch.zeros(1)
+        walked.zero_()
+        served = rt.serve(raw_path=raw)
+        serve_launches = _kernel_launches(counters)
+        log(f"runtime serve bf16: {served['n_alerts']} of {n_alerts} alerts in "
+            f"{served['seconds']:.4f} s, {served['alerts_per_sec']:.1f} alerts/s, host reading "
+            f"included [{card}]; launches {serve_launches}; K1 rows walked "
+            f"{int(walked.item())} (0 required)")
+        if served["n_alerts"] != n_alerts:
+            raise SystemExit("runtime serve did not cover every alert")
+        if on_card:
+            _require_serving_launches(serve_launches, walked, "runtime serve")
+        model = build_fusion_model(rt.config, device=dev)
+        model.load_state_dict(torch.load(run_dir / "checkpoints" / "best.pt", map_location=dev,
+                                         weights_only=True)["params"])
+        mean, std = load_photo_stats(out / "photo_stats.npz")
+        sec = rt.config.section("serve")
+        direct = serve_alert_stream(model, iter_alert_samples(raw), batch_size=sec["batch_size"],
+                                    length_buckets=tuple(sec["length_buckets"]), stats_mean=mean,
+                                    stats_std=std, horizon_days=100.0, device=dev)
+        err = float(np.abs(np.stack([r["probs"] for r in served["results"]])
+                           - np.stack([r["probs"] for r in direct["results"]])).max())
+        log(f"  runtime serve vs serve_alert_stream on best.pt directly: max|dprob| {err:.3g} "
+            f"(<= 1e-6 required)")
+        if not err <= 1e-6:
+            raise SystemExit("runtime serve disagrees with serve_alert_stream on the same weights")
+        result.update(serve_launches=serve_launches, alerts_per_s=served["alerts_per_sec"])
+        del model
+
+        # 5. the serving CLI in a process of its own, on the run's config
+        run_toml = tmp / "run.toml"
+        run_toml.write_text(_toml(rt.config))
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "applecider_tpu_torch.infer.cli", "--config",
+                              str(run_toml), "--raw_path", str(raw), "--workdir", str(workdir),
+                              "--device", dev.type],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_out = json.loads(cli.stdout.strip().splitlines()[-1]) if cli.returncode == 0 else {}
+        log(f"applecider-serve-torch subprocess: exit {cli.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s (process start, model load and serving): {cli_out}")
+        if cli.returncode != 0 or cli_out.get("n_alerts") != n_alerts:
+            raise SystemExit(f"the serving CLI failed or served another count:\n{cli.stderr[-3000:]}")
+
+        # 6. warmup, twice
+        totals = []
+        for which in ("first", "second"):
+            w = rt.warmup()
+            totals.append(w["total_seconds"])
+            per = [p["seconds"] for p in w["programs"]]
+            log(f"warmup ({which} in this process): {len(w['programs'])} shapes (length buckets x "
+                f"spectra buckets, batch {w['programs'][0]['batch']}) in {w['total_seconds']:.2f} s, "
+                f"kernel build check {w['build_seconds']:.2f} s, per shape {min(per):.3f}-"
+                f"{max(per):.3f} s [{card}]")
+        result["warmup_s"] = totals
+    if on_card:
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1562,11 +1812,14 @@ def main() -> int:
         check_training_parity(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workflow = check_workflow(card)
     for r in records:
         by_path = {"serving": serving["launches"][r["name"]],
                    "raw_serving": raw["launches"][r["name"]],
                    "training": training["launches"][r["name"]],
-                   "ladder": ladder_launches[r["name"]]}
+                   "ladder": ladder_launches[r["name"]],
+                   "workflow_train": workflow["train_launches"][r["name"]],
+                   "workflow_serve": workflow["serve_launches"][r["name"]]}
         path = ("ladder" if r["name"].startswith(LADDER_PREFIX) else
                 "training" if r["name"] in TRAINING_KERNELS else "serving")
         r["launches"] = by_path[path]

@@ -15,6 +15,7 @@ MODULES = [
     "applecider_tpu_torch",
     "applecider_tpu_torch.config",
     "applecider_tpu_torch.device",
+    "applecider_tpu_torch.registry",
     "applecider_tpu_torch.ops.kernel",
     "applecider_tpu_torch.ops.merge_scan",
     "applecider_tpu_torch.ops.attention",
@@ -37,6 +38,7 @@ MODULES = [
     "applecider_tpu_torch.infer.stream",
     "applecider_tpu_torch.infer.serve",
     "applecider_tpu_torch.infer.feeder",
+    "applecider_tpu_torch.infer.cli",
     "applecider_tpu_torch.preprocessing",
     "applecider_tpu_torch.preprocessing.config",
     "applecider_tpu_torch.preprocessing.table",
@@ -44,13 +46,23 @@ MODULES = [
     "applecider_tpu_torch.preprocessing.photometry",
     "applecider_tpu_torch.preprocessing.spectra",
     "applecider_tpu_torch.preprocessing.builder",
+    "applecider_tpu_torch.preprocessing.alert_samples",
+    "applecider_tpu_torch.preprocessing.events",
+    "applecider_tpu_torch.preprocessing.alerts",
+    "applecider_tpu_torch.preprocessing.manifest",
+    "applecider_tpu_torch.preprocessing.cli",
     "applecider_tpu_torch.utils",
     "applecider_tpu_torch.utils.weights",
     "applecider_tpu_torch.datasets",
     "applecider_tpu_torch.datasets.loader",
+    "applecider_tpu_torch.datasets.taxonomy",
+    "applecider_tpu_torch.datasets.oversampler",
+    "applecider_tpu_torch.datasets.photo_dataset",
+    "applecider_tpu_torch.datasets.fusion_dataset",
     "applecider_tpu_torch.train",
     "applecider_tpu_torch.train.optim",
     "applecider_tpu_torch.train.trainer",
+    "applecider_tpu_torch.train.runtime",
     "applecider_tpu_torch.testing",
     "applecider_tpu_torch.tools",
     "applecider_tpu_torch.tools.profile_serving",
@@ -62,12 +74,12 @@ MODULES = [
 
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a fresh interpreter whose import
-    system refuses ``jax``, ``flax``, ``applecider_tpu`` and ``pandas`` (the
-    card's machine has no pandas)."""
+    system refuses ``jax``, ``flax``, ``applecider_tpu``, ``pandas`` and
+    ``sklearn`` (the card's machine has neither pandas nor scikit-learn)."""
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
 
-        BLOCKED = ("jax", "jaxlib", "flax", "optax", "applecider_tpu", "pandas")
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "applecider_tpu", "pandas", "sklearn")
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
