@@ -123,8 +123,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32) mha_mma_kernel(
   bf16* vs = ks + Lp * padded_width(HD);
   float* neg2 = reinterpret_cast<float*>(vs + Lp * padded_width(HD));
   const size_t base = static_cast<size_t>(blockIdx.x) * L * HD;
-  load_kv<HD>(ks, vs, neg2, k + base, v + base,
-              mask != nullptr ? mask + static_cast<size_t>(blockIdx.x / H) * L : nullptr, L);
+  load_kv<HD>(ks, vs, k + base, v + base, L);
+  fill_key_mask<true>(neg2, mask != nullptr ? mask + static_cast<size_t>(blockIdx.x / H) * L : nullptr, L);
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i0 = 16 * warp; i0 < L; i0 += 16 * kMmaWarps) {

@@ -60,8 +60,8 @@
 //   the fill and the Philox -> bits replay stays exact; with keep_out it
 //   writes the rows' 0/1 bytes from its scratch bits. kKeepAll allocates no
 //   keep bytes and draws nothing.
-//   forward, f32 (flash_fwd_kernel, eight warps), and every K4x rung in
-//   both dtypes: K and V of the head in f32 shared memory (rows padded to
+//   forward, f32 (flash_fwd_kernel, eight warps), and the K4x rungs in
+//   f32: K and V of the head in f32 shared memory (rows padded to
 //   HD + 1 words: no bank conflicts), as K2's f32 kernel. Each warp owns
 //   query rows i = warp, warp + 8, ...: scores of keys j = lane, lane + 32,
 //   ... into a per-warp shared row, max and sum by shuffles, then the keep
@@ -108,26 +108,43 @@
 //   is written once, in a fixed summation order.
 //
 // K4x, the forward ablation ladder (replaces scripts/tpu_flash_microab.py
-// _fwd_kernel and _fwd_kernel_batched, Pallas, TPU): the FMA forward with
-// stages taken out, to split its time between them on the card. Its rungs
-// are instantiations of flash_fwd_kernel in both dtypes: `full` is kPhilox
-// and `no_prng` kKeepAll, the f32 training kernel's own instantiations (in
-// bf16 the training step runs flash_fwd_mma_kernel instead), and two
-// forward-only modes are added as compile-time branches that leave those
-// instantiations as they were:
-//   kDrawOnly (`prng_only_no_apply`): kKeepAll's output, and the row's
-//   Philox words drawn but not applied; each lane XORs the words it draws
-//   and writes the XOR to keep_out only if keep_out is not null, which the
-//   wrapper never passes, so the draw stays in the code and out of the
-//   result.
+// _fwd_kernel and _fwd_kernel_batched, Pallas, TPU): K4's forward with
+// stages taken out, to split its time between them on the card. Each rung
+// is an instantiation of the training forward of its dtype, so that the
+// ladder takes apart the forward the training step runs: in bf16
+// flash_fwd_mma_kernel (tensor cores), in f32 flash_fwd_kernel (FMA).
+// `full` is kPhilox and `no_prng` kKeepAll, launched by launch_fwd as
+// ac_flash_fwd launches them; two forward-only modes are compile-time
+// branches that leave those instantiations as they were:
+//   kDrawOnly (`prng_only_no_apply`): kKeepAll's output, and the keep mask
+//   drawn but not applied. bf16: kPhilox's keep bytes and scratch (so its
+//   shared memory and occupancy), draw_tile_row<kPhilox> into them, then
+//   attend_rows without dropout; the drawn bits reach keep_out only if it
+//   is not null, which the wrapper never passes, so the draw stays in the
+//   code and out of the result. The ladder's "draw" stage is then the
+//   Philox counters, the fill of the tile bytes and the shared memory they
+//   take; its "apply" stage is only keep_bit's select and the scale in
+//   attend_rows. f32: each lane XORs the Philox words it draws for the row
+//   and writes the XOR to keep_out only if keep_out is not null.
 //   kMatmulOnly (`matmul_only`): no max, exp or denominator; the raw
 //   masked score (-1e9 included) is rounded to the I/O dtype, multiplied
 //   into V and written undivided (outputs of order 1e9 are the contract).
-// `batched{N}` is flash_fwd_pairs_kernel: kKeepAll for N heads of one
-// batch row in one block, K and V kept in the I/O dtype so that eight
-// heads fit (bf16, L = 258: 149 KB; f32 at L = 258, 281 KB, is refused
-// at launch). Every rung has the forward's bound
-// (bytes: q, k, v and out once).
+//   bf16: attend_rows' one-sweep form on the key mask in natural units
+//   (fill_key_mask<false>), with no keep bytes.
+// `batched{N}`: kKeepAll for N heads of one batch row a block (grid
+// B * H / N), the mask row loaded once. bf16, flash_fwd_mma_pairs_kernel:
+// K and V of the N heads swizzled as the one-head kernel holds them, warps
+// over the N * T (head, 16-row tile) pairs with attend_rows, so each tile's
+// arithmetic, and the output, is no_prng's bit for bit. At L = 258, hd =
+// 16 (T = 17) N = 8 holds 140 KB of shared memory, one block an SM, so the
+// block takes up to W = 32 warps (24 at hd = 32, whose registers 32 would
+// cap at 64): ceil(N T / ceil(N T / W)) of them, as many as divide the
+// tiles into equal rounds (136 tiles: 28 warps, 5 rounds; N = 4, 68
+// tiles: 23 warps, 3 rounds). f32, flash_fwd_pairs_kernel:
+// flash_fwd_kernel's per-row arithmetic, K and V in f32 rows of HD + 1
+// words. A launch over a block's opt-in shared memory (f32 at L = 258 and
+// hd >= 16; hd = 32 with N = 8 in both dtypes) is refused, never shrunk.
+// Every rung has the forward's bound (bytes: q, k, v and out once).
 #include <type_traits>
 
 #include "common.cuh"
@@ -300,10 +317,10 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
   }
 }
 
-// K4x `batched{N}`: kKeepAll for pair_block = N heads of one batch row per
-// block (grid B * H / N). The mask row is loaded once; K and V of the N
-// heads stay in the I/O dtype, rows padded to an odd number of 32-bit words
-// (no bank conflicts); warps go over the N * L (head, query row) pairs with
+// K4x `batched{N}` in f32: kKeepAll for pair_block = N heads of one batch
+// row per block (grid B * H / N). The mask row is loaded once; K and V of
+// the N heads in rows padded to an odd number of 32-bit words (no bank
+// conflicts); warps go over the N * L (head, query row) pairs with
 // flash_fwd_kernel's per-row arithmetic, so the results equal kKeepAll's.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kWarps * 32) flash_fwd_pairs_kernel(
@@ -825,8 +842,15 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 16 / kBwdWarps) flash_bwd_mma_
 // warps, a warp per 16-query-row tile: the tile row's keep bytes drawn as
 // pass A of the backward draws them (draw_tile_row), the keep mask
 // exported from the warp's scratch bits when keep_out is not null, then
-// attend_rows (mma.cuh) on q.scale rounded to bf16. See the header.
+// attend_rows (mma.cuh) on q.scale rounded to bf16. kDrawOnly and
+// kMatmulOnly are the K4x ladder's. See the header.
 constexpr int kFwdWarps = 4;
+
+// whether a forward mode draws the keep mask into tile bytes (and so
+// allocates them)
+__host__ __device__ constexpr bool draws(int mode) {
+  return mode == kPhilox || mode == kBits || mode == kDrawOnly;
+}
 
 template <int HD, int MODE>
 __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_mma_kernel(
@@ -835,7 +859,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_mma_kernel(
     const uint8_t* __restrict__ bits, __nv_bfloat16* __restrict__ out, uint8_t* __restrict__ keep_out,
     int H, int L, float scale, int thresh, float drop_scale, uint32_t seed) {
   static_assert(HD == 8 || HD == 16 || HD == 32, "head width");
-  constexpr bool kDrop = MODE != kKeepAll;
+  constexpr bool kDraw = draws(MODE), kApply = MODE == kPhilox || MODE == kBits;
+  constexpr bool kRaw = MODE == kMatmulOnly;
   const int T = (L + 15) / 16, Lp = 16 * T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -846,8 +871,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_mma_kernel(
 
   const int bh = blockIdx.x;
   const size_t base = static_cast<size_t>(bh) * L * HD;
-  load_kv<HD>(ks, vs, neg2, k + base, v + base, mask != nullptr ? mask + static_cast<size_t>(bh / H) * L : nullptr,
-              L);
+  load_kv<HD>(ks, vs, k + base, v + base, L);
+  fill_key_mask<!kRaw>(neg2, mask != nullptr ? mask + static_cast<size_t>(bh / H) * L : nullptr, L);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -855,18 +880,58 @@ __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_mma_kernel(
   for (int it = warp; it < T; it += kFwdWarps) {
     const int i0 = 16 * it;
     const uint64_t e0 = (static_cast<uint64_t>(bh) * L + i0) * L;
-    if constexpr (kDrop) draw_tile_row<MODE>(ktile, sc, bits, e0, it, T, L, thresh, seed, lane);
+    // kDrawOnly draws kPhilox's bits (draw_tile_row branches on kPhilox)
+    if constexpr (kDraw)
+      draw_tile_row<MODE == kBits ? kBits : kPhilox>(ktile, sc, bits, e0, it, T, L, thresh, seed, lane);
     if (keep_out != nullptr) {
       // element f = (i - i0) * L + j of the tile row is bit f + e0 % 4 of sc
       const int d = static_cast<int>(e0 & 3);
       for (int f = lane; f < min(16, L - i0) * L; f += 32)
-        keep_out[e0 + f] = kDrop ? (sc[(f + d) >> 5] >> ((f + d) & 31)) & 1u : 1u;
+        keep_out[e0 + f] = kDraw ? (sc[(f + d) >> 5] >> ((f + d) & 31)) & 1u : 1u;
       __syncwarp();  // the next tile row's draw overwrites sc
     }
     uint32_t qa[padded_width(HD) / 16][4];
     load_q<HD>(qa, q + base, i0, L, scale, lane);
-    attend_rows<HD, kDrop>(out + base, qa, ks, vs, neg2, ktile + it * T * 32 + (lane >> 2) + 8 * (lane & 3), i0,
-                           L, kLog2e, drop_scale, lane);
+    attend_rows<HD, kApply, kRaw>(out + base, qa, ks, vs, neg2, ktile + it * T * 32 + (lane >> 2) + 8 * (lane & 3),
+                                  i0, L, kRaw ? 1.f : kLog2e, drop_scale, lane);
+  }
+}
+
+// K4x `batched{N}` in bf16 (see the header): block (batch row, group of
+// pair_block = N heads), up to pair_warps(HD) warps over the N * T (head,
+// tile) pairs; K and V of head n at row n * Lp of ks and vs. 32 warps hold
+// a thread to 64 registers, which hd = 32 needs more than
+__host__ __device__ constexpr int pair_warps(int hd) { return hd == 32 ? 24 : 32; }
+
+template <int HD>
+__global__ void __launch_bounds__(pair_warps(HD) * 32, 1) flash_fwd_mma_pairs_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
+    int H, int L, int pair_block, float scale) {
+  static_assert(HD == 8 || HD == 16 || HD == 32, "head width");
+  constexpr int HDP = padded_width(HD);
+  const int T = (L + 15) / 16, Lp = 16 * T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + static_cast<size_t>(pair_block) * Lp * HDP;
+  float* neg2 = reinterpret_cast<float*>(vs + static_cast<size_t>(pair_block) * Lp * HDP);
+
+  const int groups = H / pair_block;
+  const int b = blockIdx.x / groups;
+  // heads h0 .. h0 + pair_block - 1 of batch row b are contiguous
+  const size_t base = (static_cast<size_t>(b) * H + (blockIdx.x % groups) * pair_block) * L * HD;
+  load_kv<HD>(ks, vs, k + base, v + base, L, pair_block);
+  fill_key_mask<true>(neg2, mask != nullptr ? mask + static_cast<size_t>(b) * L : nullptr, L);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int pr = warp; pr < pair_block * T; pr += blockDim.x / 32) {
+    const int n = pr / T, i0 = 16 * (pr - n * T);
+    const size_t head = base + static_cast<size_t>(n) * L * HD;
+    const size_t rows = static_cast<size_t>(n) * Lp * HDP;
+    uint32_t qa[HDP / 16][4];
+    load_q<HD>(qa, q + head, i0, L, scale, lane);
+    attend_rows<HD, false>(out + head, qa, ks + rows, vs + rows, neg2, nullptr, i0, L, kLog2e, 1.f, lane);
   }
 }
 
@@ -896,12 +961,18 @@ size_t bwd_mma_smem(int L, int hd, int mode) {
   return arrays * Lp * hdp * 2 + Lp * (sizeof(float) + sizeof(float4)) + keep;
 }
 
-// flash_fwd_mma_kernel: K and V, the key mask (kv_smem); with dropout, each
-// warp's scratch and the keep bytes of every 16 x 16 tile
+// flash_fwd_mma_kernel: K and V, the key mask (kv_smem); when the mode
+// draws, each warp's scratch and the keep bytes of every 16 x 16 tile
 size_t fwd_mma_smem(int L, int hd, int mode) {
   const size_t T = (L + 15) / 16;
-  const size_t keep = mode == kKeepAll ? 0 : sizeof(uint32_t) * kFwdWarps * scratch_words(L) + T * T * 32;
+  const size_t keep = draws(mode) ? sizeof(uint32_t) * kFwdWarps * scratch_words(L) + T * T * 32 : 0;
   return kv_smem(L, hd) + keep;
+}
+
+// flash_fwd_mma_pairs_kernel: K and V of pair_block heads, one mask row
+size_t pairs_mma_smem(int L, int hd, int pair_block) {
+  const size_t Lp = 16 * ((L + 15) / 16);
+  return 2 * pair_block * Lp * padded_width(hd) * sizeof(__nv_bfloat16) + Lp * sizeof(float);
 }
 
 template <typename K>
@@ -925,25 +996,18 @@ struct Args {
   cudaStream_t stream;
 };
 
-// the FMA forward: f32, and every K4x rung in both dtypes
-template <typename T, int HD, int MODE>
-int launch_fwd_fma(const Args& a) {
-  const size_t smem = fwd_smem(a.L, HD);
-  auto kernel = flash_fwd_kernel<T, HD, MODE>;
-  if (int err = prepare(kernel, smem)) return err;
-  kernel<<<a.BH, kWarps * 32, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<const uint8_t*>(a.bits), static_cast<T*>(a.out),
-      static_cast<uint8_t*>(a.keep_out), a.H, a.L, a.scale, a.thresh, a.drop_scale, a.seed);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ac_flash_fwd: f32 runs on the FMA kernel, bf16 on the tensor-core kernel
-// (see the header)
+// ac_flash_fwd and the K4x rungs other than batched{N}: f32 runs on the
+// FMA kernel, bf16 on the tensor-core kernel (see the header)
 template <typename T, int HD, int MODE>
 int launch_fwd(const Args& a) {
   if constexpr (std::is_same_v<T, float>) {
-    return launch_fwd_fma<float, HD, MODE>(a);
+    const size_t smem = fwd_smem(a.L, HD);
+    auto kernel = flash_fwd_kernel<float, HD, MODE>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<a.BH, kWarps * 32, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+        static_cast<const uint8_t*>(a.mask), static_cast<const uint8_t*>(a.bits), static_cast<float*>(a.out),
+        static_cast<uint8_t*>(a.keep_out), a.H, a.L, a.scale, a.thresh, a.drop_scale, a.seed);
   } else {
     const size_t smem = fwd_mma_smem(a.L, HD, MODE);
     auto kernel = flash_fwd_mma_kernel<HD, MODE>;
@@ -952,8 +1016,8 @@ int launch_fwd(const Args& a) {
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const uint8_t*>(a.mask), static_cast<const uint8_t*>(a.bits), static_cast<T*>(a.out),
         static_cast<uint8_t*>(a.keep_out), a.H, a.L, a.scale, a.thresh, a.drop_scale, a.seed);
-    return static_cast<int>(cudaGetLastError());
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // f32 runs on the FMA kernel, bf16 on the tensor-core kernel (see the header)
@@ -981,21 +1045,38 @@ int launch_bwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4x batched{N}: f32 on flash_fwd_pairs_kernel, bf16 on
+// flash_fwd_mma_pairs_kernel (see the header)
 template <typename T, int HD>
 int launch_pairs(const Args& a, int pair_block) {
-  const size_t smem = pairs_smem(a.L, HD, pair_block, sizeof(T));
   if (a.H % pair_block != 0) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  const size_t smem = kF32 ? pairs_smem(a.L, HD, pair_block, sizeof(T)) : pairs_mma_smem(a.L, HD, pair_block);
   // K and V of pair_block heads over a block's shared memory (f32 batched8
-  // at L = 258): refused, as "too many resources requested for launch"
+  // at L = 258, hd = 32 batched8 in both dtypes): refused, as "too many
+  // resources requested for launch"
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  auto kernel = flash_fwd_pairs_kernel<T, HD>;
-  if (int err = prepare(kernel, smem)) return err;
-  kernel<<<a.BH / pair_block, kWarps * 32, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<T*>(a.out), a.H, a.L, pair_block, a.scale);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const uint8_t* mask = static_cast<const uint8_t*>(a.mask);
+  if constexpr (kF32) {
+    auto kernel = flash_fwd_pairs_kernel<float, HD>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<a.BH / pair_block, kWarps * 32, smem, a.stream>>>(q, k, v, mask, static_cast<T*>(a.out), a.H, a.L,
+                                                                pair_block, a.scale);
+  } else {
+    // as many warps as divide the (head, tile) pairs into equal rounds
+    const int tiles = pair_block * ((a.L + 15) / 16);
+    const int rounds = (tiles + pair_warps(HD) - 1) / pair_warps(HD);
+    auto kernel = flash_fwd_mma_pairs_kernel<HD>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<a.BH / pair_block, 32 * ((tiles + rounds - 1) / rounds), smem, a.stream>>>(
+        q, k, v, mask, static_cast<T*>(a.out), a.H, a.L, pair_block, a.scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1005,10 +1086,10 @@ int launch_ablate(const Args& a, int mode, int pair_block) {
   if (pair_block > 0) return mode == kKeepAll ? launch_pairs<T, HD>(a, pair_block)
                                               : static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case kKeepAll: return launch_fwd_fma<T, HD, kKeepAll>(a);
-    case kPhilox: return launch_fwd_fma<T, HD, kPhilox>(a);
-    case kDrawOnly: return launch_fwd_fma<T, HD, kDrawOnly>(a);
-    case kMatmulOnly: return launch_fwd_fma<T, HD, kMatmulOnly>(a);
+    case kKeepAll: return launch_fwd<T, HD, kKeepAll>(a);
+    case kPhilox: return launch_fwd<T, HD, kPhilox>(a);
+    case kDrawOnly: return launch_fwd<T, HD, kDrawOnly>(a);
+    case kMatmulOnly: return launch_fwd<T, HD, kMatmulOnly>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

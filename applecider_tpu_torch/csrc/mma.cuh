@@ -5,14 +5,16 @@
 //
 // The forward, per block (batch, head): K and V of the head in swizzled
 // bf16 shared memory, rows zero-padded to Lp = 16 * ceil(L / 16) and
-// columns to HDP = max(16, HD), beside the key mask in the log2 domain
-// (load_kv). A warp owns a 16-query-row tile: its q rows go straight from
-// device memory into A fragments (load_q), then attend_rows sweeps the keys
-// 16 at a time twice, S = (q.K^T) * mul + neg2 by mma each time: sweep 1
-// takes the row max, sweep 2 p = 2^(s - m), the f32 pre-dropout denominator,
-// the keep bits (K4) and acc += P.V by mma with P rounded to bf16. P is
-// rounded relative to the final row max, as in the plain versions, so only
-// the order of the f32 sums differs from them.
+// columns to HDP = max(16, HD) (load_kv), beside the key mask in the log2
+// domain (fill_key_mask). A warp owns a 16-query-row tile: its q rows go
+// straight from device memory into A fragments (load_q), then attend_rows
+// sweeps the keys 16 at a time twice, S = (q.K^T) * mul + neg2 by mma each
+// time: sweep 1 takes the row max, sweep 2 p = 2^(s - m), the f32
+// pre-dropout denominator, the keep bits (K4) and acc += P.V by mma with P
+// rounded to bf16. P is rounded relative to the final row max, as in the
+// plain versions, so only the order of the f32 sums differs from them. The
+// K4x ladder's `matmul_only` is attend_rows' one-sweep form: the raw masked
+// scores, in natural units, times V.
 #pragma once
 
 #include "common.cuh"
@@ -166,36 +168,56 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[HDP / 8
 
 __host__ __device__ constexpr int padded_width(int hd) { return hd < 16 ? 16 : hd; }
 
-// Bytes of load_kv's arrays: K and V as (Lp, HDP) bf16, neg2 as Lp floats
+// Bytes of load_kv's arrays for one head and its key mask: K and V as
+// (Lp, HDP) bf16, the mask as Lp floats
 inline size_t kv_smem(int L, int hd) {
   const size_t Lp = 16 * ((L + 15) / 16);
   return 2 * Lp * padded_width(hd) * sizeof(bf16) + Lp * sizeof(float);
 }
 
-// K and V of one head (k, v: L rows of HD, 16-byte aligned) into ks and vs,
-// swizzled, zero past row L and column HD; neg2[j] the key mask in the log2
-// domain: -1e9 * log2(e) at padded keys (mask_row[j] != 0), -inf at j >= L,
-// so that keys past L weigh exactly 0 while a row whose every key is
-// padded keeps the plain version's uniform softmax. Called by the whole
-// block; the caller syncs it before reading.
+// K and V of `heads` consecutive heads (k, v: heads x L rows of HD, 16-byte
+// aligned) into ks and vs, head n at row n * Lp, swizzled, zero past row L
+// of each head and past column HD. Called by the whole block; the caller
+// syncs it before reading. Lp is a multiple of the swizzle's period, so
+// head n's tile reads as a one-head array at ks + n * Lp * HDP.
 template <int HD>
-__device__ __forceinline__ void load_kv(bf16* ks, bf16* vs, float* neg2, const bf16* __restrict__ k,
-                                        const bf16* __restrict__ v, const uint8_t* __restrict__ mask_row,
-                                        int L) {
+__device__ __forceinline__ void load_kv(bf16* ks, bf16* vs, const bf16* __restrict__ k,
+                                        const bf16* __restrict__ v, int L, int heads = 1) {
   constexpr int HDP = padded_width(HD), kChunks = HDP / 8;
   const int Lp = 16 * ((L + 15) / 16);
-  for (int idx = threadIdx.x; idx < Lp * kChunks; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < heads * Lp * kChunks; idx += blockDim.x) {
     const int r = idx / kChunks, ch = idx % kChunks;
+    const int n = r / Lp, i = r - n * Lp;
     uint4 kc = make_uint4(0u, 0u, 0u, 0u), vc = kc;
-    if (r < L && ch < HD / 8) {
-      kc = *reinterpret_cast<const uint4*>(k + r * HD + 8 * ch);
-      vc = *reinterpret_cast<const uint4*>(v + r * HD + 8 * ch);
+    if (i < L && ch < HD / 8) {
+      const size_t src = (static_cast<size_t>(n) * L + i) * HD + 8 * ch;
+      kc = *reinterpret_cast<const uint4*>(k + src);
+      vc = *reinterpret_cast<const uint4*>(v + src);
     }
     *reinterpret_cast<uint4*>(ks + swz<HDP>(r, ch)) = kc;
     *reinterpret_cast<uint4*>(vs + swz<HDP>(r, ch)) = vc;
   }
-  for (int j = threadIdx.x; j < Lp; j += blockDim.x)
-    neg2[j] = j >= L ? -INFINITY : ((mask_row != nullptr && mask_row[j]) ? -1e9f * kLog2e : 0.f);
+}
+
+// neg[j], j < Lp, the key mask of one batch row (mask_row: L bytes, nonzero
+// = padded key; null: none padded). kLog2: the log2 domain, -1e9 * log2(e)
+// at padded keys and -inf at j >= L, so that keys past L weigh exactly 0
+// while a row whose every key is padded keeps the plain version's uniform
+// softmax. Otherwise natural units for the raw scores of `matmul_only`:
+// -1e9 at padded keys, as the plain version adds it, and 0 at j >= L,
+// exact there because K and V are zero past row L (-inf would make
+// -inf * 0 = NaN). Called by the whole block; the caller syncs it.
+template <bool kLog2>
+__device__ __forceinline__ void fill_key_mask(float* neg, const uint8_t* __restrict__ mask_row, int L) {
+  const int Lp = 16 * ((L + 15) / 16);
+  for (int j = threadIdx.x; j < Lp; j += blockDim.x) {
+    const bool padded = j < L && mask_row != nullptr && mask_row[j];
+    if (kLog2) {
+      neg[j] = j >= L ? -INFINITY : (padded ? -1e9f * kLog2e : 0.f);
+    } else {
+      neg[j] = padded ? -1e9f : 0.f;
+    }
+  }
 }
 
 // A fragments of query rows i0..i0+15 of q (L rows of HD, 16-byte
@@ -222,14 +244,29 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[padded_width(HD) / 16][4],
 // sweep 2 p = 2^(s - m), denom = sum p (f32, before dropout), with kDrop p
 // times drop_scale where kept and 0 elsewhere (keep byte of key tile J at
 // krow[32 J], already offset to the lane), P rounded to bf16, acc += P.V;
-// out = acc / denom.
-template <int HD, bool kDrop>
+// out = acc / denom. kMatmulOnly (the K4x ladder's `matmul_only`): one
+// sweep with no max, exp or denominator, S = (qa.K^T) * mul + neg2 with
+// mul = 1 and the mask in natural units (fill_key_mask<false>), rounded to
+// bf16, acc += S.V, out = acc undivided.
+template <int HD, bool kDrop, bool kMatmulOnly = false>
 __device__ __forceinline__ void attend_rows(bf16* __restrict__ out, const uint32_t (&qa)[padded_width(HD) / 16][4],
                                             const bf16* ks, const bf16* vs, const float* neg2,
                                             const uint8_t* krow, int i0, int L, float mul, float drop_scale,
                                             int lane) {
   constexpr int HDP = padded_width(HD);
   const int Lp = 16 * ((L + 15) / 16);
+  if constexpr (kMatmulOnly) {
+    float acc[HDP / 8][4] = {};
+    for (int j0 = 0; j0 < Lp; j0 += 16) {
+      float s[2][4];
+      tile_scores<HDP>(s, qa, ks, neg2, j0, mul, lane);
+      uint32_t a[4];
+      pack_a(a, s);
+      tile_acc<HDP>(acc, a, vs, j0, lane);
+    }
+    store_rows<HD, HDP>(out, acc, i0, L, 1.f, lane);
+    return;
+  }
   float m[2] = {-INFINITY, -INFINITY};
   for (int j0 = 0; j0 < Lp; j0 += 16) {
     float s[2][4];

@@ -6,7 +6,10 @@ Counterpart of the timing half of ``scripts/tpu_flash_microab.py``. Times
 every rung of ``ops/flash_microab.py`` at the training shape of the
 photometry attention (B = 256, H = 8, L = 258, hd = 16, bf16, dropout rate
 0.4) on inputs made from ``np.random.default_rng(0)`` (q, k, v normal, a
-random key mask ``< 0.2``, as the script makes them). Two interleaved
+random key mask ``< 0.2``, as the script makes them). In bf16 every rung
+is an instantiation of the tensor-core forward the training step runs
+(``flash_fwd_mma_kernel``; ``batched{N}`` its N-heads-a-block form), and
+each rung of the report names its kernel (``route``). Two interleaved
 rounds of CUDA-event times over 30 launches each; the minimum per rung is
 kept. Beside each rung: its bound (q, k, v and out read or written once
 plus the mask, at the card's memory rate, or the two products at its peak
@@ -15,8 +18,10 @@ function, that call's time: ``scaled_dot_product_attention`` with the mask,
 ``dropout_p = 0.4`` for ``full`` and 0 for the rungs whose output is
 ``no_prng``'s (``prng_only_no_apply`` and ``batched*`` too).
 Then the split of ``full``'s time: softmax (``no_prng - matmul_only``),
-draw (``prng_only_no_apply - no_prng``), apply (``full -
-prng_only_no_apply``) and pairing (``batched{N} - no_prng``).
+draw (``prng_only_no_apply - no_prng``: the Philox counters, the fill of
+the tile's keep bytes and the shared memory they take), apply (``full -
+prng_only_no_apply``: the keep bit's select and the scale) and pairing
+(``batched{N} - no_prng``).
 
 Needs a GPU; prints the card's name and power limit first and the report
 as one JSON line last. Writes nothing to disk.
@@ -31,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from applecider_tpu_torch.device import card_name_and_power, resolve_device
-from applecider_tpu_torch.ops.flash_microab import MODES, flash_forward_ablation
+from applecider_tpu_torch.ops.flash_microab import MODES, flash_forward_ablation, route
 
 TRAIN_SHAPE = (256, 8, 258, 16)
 RATE, SEED = 0.4, 7
@@ -115,7 +120,7 @@ def ladder(device="cuda") -> dict:
     return {
         "shape": {"B": B, "H": H, "L": L, "hd": hd}, "dtype": "bfloat16",
         "rate": RATE, "rounds": ROUNDS, "iters": ITERS,
-        "rungs": {m: {"ms": ms[m], "bound_ms": b_ms, "bound_by": b_by,
+        "rungs": {m: {"route": route(m, torch.bfloat16), "ms": ms[m], "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lib_ms[LIBRARY_RATE[m]] if m in LIBRARY_RATE else None}
                   for m in MODES},
         "stages": split(ms),
@@ -133,7 +138,7 @@ def main() -> None:
         step = "" if prev is None or m.startswith("batched") else f", {r['ms'] - prev:+.4f} from the rung above"
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{m:>20}: {r['ms']:.4f} ms ({r['ms'] / full:.1%} of full{step}); bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}); sdpa {lib}", flush=True)
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}); sdpa {lib}; {r['route']}", flush=True)
         if m in LADDER:
             prev = r["ms"]
     for name, s in report["stages"].items():

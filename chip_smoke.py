@@ -26,8 +26,8 @@ Phases, in order; any failure exits non-zero before the result line:
    with a fully masked batch row, timed at the train shape and the
    serving shape; K4 forward and backward on injected bits in f32 and
    bf16, at the same tails and head widths; HMMA (tensor-core) instructions in the SASS of every bf16 K2
-   and K4 instantiation and none in the FMA kernels' (f32, and the K4x
-   ladder in both dtypes); K4's Philox bits against their twin bit for
+   and K4 instantiation (the K4x rungs' too) and none in the FMA kernels'
+   (all f32), and no other kernel; K4's Philox bits against their twin bit for
    bit, the Philox kernels against the bits kernels fed the same keep mask
    at the same tails and head widths, the export at rate 0, and the keep
    rate over the train shape; K4 forward and backward timed at the train
@@ -37,15 +37,17 @@ Phases, in order; any failure exits non-zero before the result line:
    equal), then at each of the five train-shape stages checked in f32 and
    timed beside PyTorch's own LN+GELU backward (and no K3b instantiation
    spilling registers in phase 1); K4x, the
-   forward ablation ladder: every rung against its plain version in f32
-   and bf16, on prefix-length masks, with no padded key, and on the
-   ladder's own inputs (B = 256, random mask), ``full`` equal to K4a's
-   forward (exactly in f32, within the bf16 limit in bf16, where K4a runs
-   on the tensor cores) and ``prng_only_no_apply`` to ``no_prng`` bit for
-   bit, and ``prng_only_no_apply``'s Philox draw present in its SASS; then
-   the ladder's own path, ``tools/flash_microab.ladder`` at the train
-   shape, with each rung's launch count read from that run alone, and its
-   FMA ``full`` timed beside K4a's tensor-core forward on its inputs;
+   forward ablation ladder, whose rungs are instantiations of K4a's forward
+   (bf16: the tensor-core kernel): every rung against its plain version in
+   f32 and bf16, on prefix-length masks at the same tails and head widths,
+   with no padded key, and on the ladder's own inputs (B = 256, random
+   mask), ``full`` equal to K4a's forward and ``no_prng`` to its rate-0
+   forward, ``prng_only_no_apply`` and ``batched4/8`` to ``no_prng``, all
+   bit for bit, a ``batched{N}`` over a block's shared memory refused, and
+   ``prng_only_no_apply``'s Philox draw present in its SASS; then the
+   ladder's own path, ``tools/flash_microab.ladder`` at the train shape,
+   with each rung's launch count read from that run alone, and its ``full``
+   timed beside K4a's ``flash_forward(seed=)`` in turns;
 3. the serving path at the full published AppleCider widths: 2048
    synthetic alerts through ``LengthBinnedFeeder(FusedSpectraStream)`` in
    bf16, with every kernel's launch count read from that run alone; then
@@ -651,26 +653,89 @@ def time_flash(rng, dev) -> tuple[dict, dict]:
     return fwd, bwd
 
 
-def check_flash_ladder(rng, dev, B: int = 64) -> dict:
+# (case, B, L, hd) of the K4x checks: prefix masks at the 16-row tile tails
+# the tensor-core rungs must get right (L = 1, 17, 33) and at full tiles,
+# hd 8 and 32 at a tail and at L = 258; no padded key, where matmul_only's
+# limit is tight; and the ladder's own inputs, the shape and mask the timed
+# path gives the kernels
+LADDER_CASES = (tuple(("prefix masks", 64, L, HEAD_DIM) for L in (1, 17, 33, 64, TRAIN_L))
+                + tuple(("prefix masks", 8, L, hd) for hd in (8, 32) for L in (17, TRAIN_L))
+                + (("no padded key", 64, TRAIN_L, HEAD_DIM), ("ladder inputs", 256, TRAIN_L, HEAD_DIM)))
+
+
+def _pairs_refused(L: int, hd: int, n: int, f32: bool, dev) -> bool:
+    """Whether ``batched{n}``'s shared memory is over a block's opt-in limit,
+    so that its launch must be refused: ``pairs_smem`` (f32: the mask, 8
+    warps' score rows, K and V of n heads in rows of hd + 1 words) and
+    ``pairs_mma_smem`` (bf16: K and V of n heads as (Lp, max(16, hd)), the
+    mask) of ``csrc/flash_attention.cu``."""
+    import torch
+
+    if f32:
+        smem = 4 * (L + 8 * L) + 2 * 4 * n * L * (hd + 1)
+    else:
+        Lp = 16 * -(-L // 16)
+        smem = 2 * 2 * n * Lp * max(16, hd) + 4 * Lp
+    return smem > torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+def _matmul_only_flips(q, k, v, mask):
+    """The bf16 ``matmul_only`` kernel's raw scores against the plain
+    version's: (D, flips, stray). The kernel's bf16 scores are read back
+    through the rung itself, with one-hot V (each output then holds one
+    score times 1, exactly). flips counts the scores that round to another
+    bf16 value than the plain version's, whose f32 sums run in another
+    order; D = sum_j |kernel_j - plain_j| |v_j|, their exact effect on the
+    output, which ``matmul_only`` never normalises. stray counts the flips
+    that no two f32 evaluations of the score could give: more than one bf16
+    step, or at a score whose plain f32 value lies farther than
+    2 hd 2^-23 sum_e |q_e k_e| (twice the error bound of an hd-term f32 dot
+    product, in any order, rounding to nearest or truncating) from a bf16
+    rounding midpoint."""
+    import torch
+
+    from applecider_tpu_torch.ops import flash_attention as fa
+    from applecider_tpu_torch.ops import flash_microab as fm
+
+    B, H, L, hd = q.shape
+    cols = []
+    for j0 in range(0, L, hd):
+        keys = torch.arange(j0, min(j0 + hd, L), device=q.device)
+        onehot = torch.zeros_like(v)
+        onehot[:, :, keys, keys - j0] = 1
+        cols.append(fm.flash_forward_ablation(q, k, onehot, mask, "matmul_only")[..., :len(keys)].float())
+    scores = fa._scores(q, k, mask)
+    gap = (torch.cat(cols, dim=-1) - scores.to(q.dtype).float()).abs()
+    del cols
+    qs = (q.float() * (1.0 / hd ** 0.5)).to(q.dtype).float()
+    w = 2 * hd * 2.0 ** -23 * torch.matmul(qs.abs(), k.float().abs().transpose(-1, -2))
+    step = ((scores + w).to(q.dtype).float() - (scores - w).to(q.dtype).float()).abs()
+    flips = int((gap > 0).sum())
+    stray = int((gap > step).sum())
+    return torch.matmul(gap, v.float().abs()), flips, stray
+
+
+def check_flash_ladder(rng, dev) -> dict:
     """K4x: every rung of the forward ablation ladder against its plain
-    version, in f32 and bf16, on four inputs: prefix-length key masks at
-    B = 64, L = 64 and 258; B = 64, L = 258 with no padded key; and the
-    ladder's own inputs (``tools/flash_microab.make_inputs``: B = 256,
-    L = 258, a random key mask U < 0.2, its seed), the shape and mask the
-    timed path gives the kernels. f32 <= 1e-5 abs and bf16 <= 2e-2 * max(1,
+    version, in f32 and bf16, at ``LADDER_CASES`` (the ladder's own inputs
+    are ``tools/flash_microab.make_inputs``: B = 256, L = 258, a random key
+    mask U < 0.2, its seed). f32 <= 1e-5 abs and bf16 <= 2e-2 * max(1,
     |plain|), as K4. ``matmul_only`` sums terms of order 1e9 that cancel
     where a key is padded, so its f32 rounding error scales with M = sum_j
     |p_j||v_j| (``matmul_only_magnitude``), not with |out|: f32 <= 1e-6 *
-    max(1, M), bf16 <= 2e-2 * max(1, |plain|) + 1e-6 * M; without a padded
-    key M is O(100) and the limit tight. ``prng_only_no_apply`` must equal
-    the ``no_prng`` kernel at max |d| = 0, and ``full`` K4a's forward
-    (``flash_forward(seed=)``): at max |d| = 0 in f32, where both run the
-    FMA kernel, and within 2e-2 * max(1, |plain|) in bf16, where K4a's
-    forward runs on the tensor cores and the ladder stays on the FMA
-    kernel (each is held exactly to the exported mask and within its limit
-    to its plain version elsewhere). f32 ``batched8`` at L = 258 does not
-    fit a block's shared memory and its launch must be refused. Returns
-    max |d| per rung on the ladder's own inputs in bf16."""
+    max(1, M), bf16 <= 2e-2 * max(1, |plain|) + 1e-6 * M + D, where D is
+    the exact effect of the raw scores that the tensor cores' f32 sums round
+    to the other bf16 neighbour (``_matmul_only_flips``: 0 at all but a few
+    outputs), each of which must be a rounding tie that two f32 orders can
+    split; without a padded key M is O(100) and the limit tight. In both
+    dtypes each rung is an instantiation of K4a's forward (bf16: the
+    tensor-core kernel), so at max |d| = 0: ``full`` equals
+    ``flash_forward(seed=)``, ``no_prng``
+    ``flash_forward`` at rate 0, and ``prng_only_no_apply`` and
+    ``batched4/8`` the ``no_prng`` kernel. A ``batched{N}`` whose K and V
+    do not fit a block's shared memory (f32 at L = 258, hd >= 16; hd = 32
+    with N = 8) must be refused at launch. Returns max |d| per rung on the
+    ladder's own inputs in bf16."""
     import torch
 
     from applecider_tpu_torch.ops import flash_attention as fa
@@ -678,8 +743,7 @@ def check_flash_ladder(rng, dev, B: int = 64) -> dict:
     from applecider_tpu_torch.tools import flash_microab as tool
 
     errs = {}
-    for case, L in (("prefix masks", 64), ("prefix masks", TRAIN_L), ("no padded key", TRAIN_L),
-                    ("ladder inputs", TRAIN_L)):
+    for case, B, L, hd in LADDER_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
             dname = "float32" if f32 else "bfloat16"
@@ -688,13 +752,14 @@ def check_flash_ladder(rng, dev, B: int = 64) -> dict:
                 q, k, v, mask = tool.make_inputs(dtype, dev)
                 seed = tool.SEED
             else:
-                q, k, v, _, mask = _attn_inputs(rng, B, L, dtype, dev)
+                q, k, v, _, mask = _attn_inputs(rng, B, L, dtype, dev, hd=hd)
                 if case == "no padded key":
                     mask = torch.zeros_like(mask)
-            tag = f"K4x {case}, B={q.shape[0]} H={HEADS} L={L} {dname}"
+            tag = f"K4x {case}, B={B} H={HEADS} L={L} hd={hd} {dname}"
             outs = {}
             for mode in fm.MODES:
-                if f32 and mode == "batched8" and L == TRAIN_L:
+                n = fm.pair_block(mode)
+                if n and _pairs_refused(L, hd, n, f32, dev):
                     try:
                         fm.flash_forward_ablation(q, k, v, mask, mode, RATE, seed)
                     except RuntimeError as err:
@@ -708,11 +773,18 @@ def check_flash_ladder(rng, dev, B: int = 64) -> dict:
                     mag = fm.matmul_only_magnitude(q, k, v, mask)
                     d = (got.float() - want.float()).abs()
                     lim = 1e-6 * (mag.clamp(min=1.0) if f32 else mag)
-                    if not f32:
-                        lim = lim + 2e-2 * want.float().abs().clamp(min=1.0)
-                    err, ok = float(d.max()), bool((d <= lim).all())
-                    rule = "<= 1e-6*max(1,M)" if f32 else "<= 2e-2*max(1,|plain|) + 1e-6*M"
                     note = f", max M={float(mag.max()):.3g}"
+                    stray = 0
+                    if not f32:
+                        flip_d, flips, stray = _matmul_only_flips(q, k, v, mask)
+                        lim = lim + 2e-2 * want.float().abs().clamp(min=1.0) + flip_d
+                        note += (f"; {flips} of {q.numel() // hd * L} scores "
+                                 f"round to the other bf16 neighbour, {stray} of them not at a tie (0 required), "
+                                 f"D > 0 at {int((flip_d > 0).sum())} of {flip_d.numel()} outputs, "
+                                 f"max D={float(flip_d.max()):.3g}")
+                        del flip_d
+                    err, ok = float(d.max()), bool((d <= lim).all()) and stray == 0
+                    rule = "<= 1e-6*max(1,M)" if f32 else "<= 2e-2*max(1,|plain|) + 1e-6*M + D"
                     del mag, d, lim
                 else:
                     err, ok = _tol_ok(got, want, dtype) if f32 else _rel_ok(got, want, 2e-2)
@@ -723,19 +795,19 @@ def check_flash_ladder(rng, dev, B: int = 64) -> dict:
                 if case == "ladder inputs" and not f32:
                     errs[mode] = err
                 del want
-            k4a = fa.flash_forward(q, k, v, mask, RATE, seed=seed)
-            d_full = float((outs["full"].float() - k4a.float()).abs().max())
-            ok_full = d_full == 0 if f32 else _rel_ok(outs["full"], k4a, 2e-2)[1]
-            d_draw = float((outs["prng_only_no_apply"].float() - outs["no_prng"].float()).abs().max())
-            d_pairs = {m: float((outs[m].float() - outs["no_prng"].float()).abs().max())
-                       for m in outs if m.startswith("batched")}
-            log(f"{tag}: full vs flash_forward(seed) kernel max|d|={d_full} "
-                f"({'0' if f32 else '<= 2e-2*max(1,|K4a|)'} required), "
-                f"prng_only_no_apply vs no_prng kernel max|d|={d_draw} (0 required); "
-                f"batched vs no_prng kernel max|d| {d_pairs}")
-            if not ok_full or d_draw:
-                raise SystemExit(f"{tag}: full disagrees with K4a's forward, or the draw changed the output")
-            del q, k, v, mask, outs, k4a
+
+            def diff(a, b):
+                return float((a.float() - b.float()).abs().max())
+
+            d_full = diff(outs["full"], fa.flash_forward(q, k, v, mask, RATE, seed=seed))
+            d_keep_all = diff(outs["no_prng"], fa.flash_forward(q, k, v, mask, 0.0))
+            d_same = {m: diff(outs[m], outs["no_prng"]) for m in outs
+                      if m == "prng_only_no_apply" or m.startswith("batched")}
+            log(f"{tag}: full vs flash_forward(seed) max|d|={d_full}, no_prng vs flash_forward at rate 0 "
+                f"max|d|={d_keep_all}, vs the no_prng kernel max|d| {d_same} (0 required for each)")
+            if d_full or d_keep_all or any(d_same.values()):
+                raise SystemExit(f"{tag}: a rung differs from the K4a forward it instantiates, or from no_prng")
+            del q, k, v, mask, outs
     return errs
 
 
@@ -758,44 +830,45 @@ def _sass_functions(source: str):
 
 def check_draw_in_sass() -> None:
     """K4x's ``prng_only_no_apply`` must keep the Philox draw that its output
-    never uses. In the SASS of the bf16, hd = 16 forward instantiations
-    (``cuobjdump -sass``), the lines that use a Philox multiplier
-    (0xD2511F53, 0xCD9E8D57, which SASS may print as the signed immediates
-    -0x2daee0ad, -0x326172a9) must be there in kDrawOnly and kPhilox, and
-    absent from kKeepAll, which draws nothing."""
+    never uses. In the SASS of the bf16 tensor-core forward at hd = 16
+    (``cuobjdump -sass`` of ``flash_fwd_mma_kernel<16, MODE>``), the lines
+    that use a Philox multiplier (0xD2511F53, 0xCD9E8D57, which SASS may
+    print as the signed immediates -0x2daee0ad, -0x326172a9) must be there
+    in kDrawOnly (3) and kPhilox (1), and absent from kKeepAll (0), which
+    draws nothing."""
     multipliers = ("0xd2511f53", "0xcd9e8d57", "-0x2daee0ad", "-0x326172a9")
     lines = {}
     for name, body in _sass_functions("flash_attention"):
-        m = re.search(r"flash_fwd_kernelI13__nv_bfloat16Li16ELi(\d)E", name)
+        m = re.search(r"flash_fwd_mma_kernelILi16ELi(\d)E", name)
         if m:
             lines[int(m.group(1))] = sum(any(c in ln for c in multipliers)
                                          for ln in body.lower().splitlines())
     keep_all, philox, draw = lines.get(0), lines.get(1), lines.get(3)
-    log(f"K4x SASS lines using a Philox multiplier, bf16 hd=16: kKeepAll {keep_all}, kPhilox "
-        f"{philox}, kDrawOnly {draw} (kDrawOnly and kPhilox > 0, kKeepAll 0 required)")
+    log(f"K4x SASS lines using a Philox multiplier, flash_fwd_mma_kernel<16, MODE>: kKeepAll {keep_all}, "
+        f"kPhilox {philox}, kDrawOnly {draw} (kDrawOnly and kPhilox > 0, kKeepAll 0 required)")
     if not (draw and philox and keep_all == 0):
         raise SystemExit("K4x prng_only_no_apply lost its Philox draw, or the SASS was not found")
 
 
-# the tensor-core kernels and the number of their instantiations (3 head
-# widths, x 3 keep sources for K4); every other kernel of the two
-# attention libraries runs on the FMA units
-TENSOR_CORE_KERNELS = {"mha_mma_kernel": 3, "flash_fwd_mma_kernel": 9, "flash_bwd_mma_kernel": 9}
-# the FMA kernels: K2 f32; K4 forward f32 (3 keep sources and the two
-# ladder-only modes) and its bf16 ladder rungs (4 modes); K4 backward f32;
-# the ladder's batched kernel in both dtypes
-FMA_KERNELS = {"mha_kernelIf": 3, "flash_fwd_kernelIf": 15, "flash_fwd_kernelI13__nv_bfloat16": 12,
-               "flash_bwd_kernelIf": 9, "flash_fwd_pairs_kernelIf": 3, "flash_fwd_pairs_kernelI13__nv_bfloat16": 3}
+# the tensor-core kernels and the number of their instantiations: K2 (3
+# head widths); K4's forward (3 head widths x 5 modes: the 3 keep sources
+# and the K4x ladder's draw-only and matmul-only) and backward (3 x 3); the
+# ladder's batched kernel (3)
+TENSOR_CORE_KERNELS = {"mha_mma_kernel": 3, "flash_fwd_mma_kernel": 15, "flash_bwd_mma_kernel": 9,
+                       "flash_fwd_mma_pairs_kernel": 3}
+# the FMA kernels, all f32: K2; K4's forward (the same 5 modes) and
+# backward; the ladder's batched kernel
+FMA_KERNELS = {"mha_kernelIf": 3, "flash_fwd_kernelIf": 15, "flash_bwd_kernelIf": 9, "flash_fwd_pairs_kernelIf": 3}
 
 
 def check_tensor_cores() -> None:
     """The bf16 attention kernels run their products on the tensor cores and
     the FMA kernels do not: in the SASS (``cuobjdump -sass``) of the
-    attention and flash_attention libraries, every instantiation of K2's
-    bf16 kernel (3 head widths) and of K4's bf16 forward and backward (3
-    head widths x 3 keep sources each) must hold HMMA instructions, and
-    none of the FMA kernels' (f32 K2 and K4, and the K4x ladder in both
-    dtypes) any."""
+    attention and flash_attention libraries, every instantiation of the
+    tensor-core kernels (bf16 K2, K4's forward with the K4x rungs, K4's
+    backward, K4x's batched kernel) must hold HMMA instructions, and none
+    of the FMA kernels' (all f32) any; no other kernel, such as a bf16
+    instantiation of an FMA kernel, may be in the libraries."""
     hmma = {}
     for source in ("attention", "flash_attention"):
         for name, body in _sass_functions(source):
@@ -805,22 +878,33 @@ def check_tensor_cores() -> None:
                 hmma.setdefault(m.group(1), {})[args] = len(re.findall(r"\bHMMA\.", body))
     tc = {n: hmma.get(n + "I", {}) for n in TENSOR_CORE_KERNELS}
     fma = {n: hmma.get(n, {}) for n in FMA_KERNELS}
+    other = sorted(set(hmma) - {n + "I" for n in TENSOR_CORE_KERNELS} - set(FMA_KERNELS))
     log(f"SASS HMMA instructions per instantiation (hd, keep mode): tensor-core kernels {tc}; "
-        f"FMA kernels {fma} (> 0 in every tensor-core and 0 in every FMA instantiation required)")
+        f"FMA kernels {fma}; other kernels {other} (> 0 in every tensor-core and 0 in every FMA "
+        f"instantiation, and no other kernel, required)")
     counts_ok = all(len(tc[n]) == c for n, c in TENSOR_CORE_KERNELS.items()) and all(
         len(fma[n]) == c for n, c in FMA_KERNELS.items())
-    if not counts_ok or not all(all(v.values()) for v in tc.values()) or any(
+    if not counts_ok or other or not all(all(v.values()) for v in tc.values()) or any(
             any(v.values()) for v in fma.values()):
         raise SystemExit("a bf16 attention kernel left the tensor cores, an FMA kernel moved onto them, "
-                         "or an instantiation is missing")
+                         "an instantiation is missing, or a kernel is unaccounted for")
+
+
+# K4x's bf16 rungs when they ran on the FMA kernel, before they moved onto
+# the tensor-core forward (chip_smoke, NVIDIA H100 80GB HBM3 at 700 W), for
+# the log lines only
+LADDER_FMA_EARLIER_MS = {"full": 1.3981, "prng_only_no_apply": 1.3286, "no_prng": 1.3595,
+                         "matmul_only": 1.2553, "batched4": 1.3414, "batched8": 2.2337}
 
 
 def time_flash_ladder(dev) -> tuple[list, dict]:
     """The ladder's own path: ``tools/flash_microab.ladder`` at the train
     shape, every rung's launches read from that run alone; then each rung's
-    plain version on the same inputs, and the ladder's FMA ``full`` beside
-    K4a's tensor-core forward in turns (FMA, tensor cores, tensor cores,
-    FMA), all outside the counted run."""
+    plain version on the same inputs, and ``full`` beside K4a's
+    ``flash_forward(seed=)``, the same kernel, in turns (rung, K4a, K4a,
+    rung), all outside the counted run: the two must agree within the
+    run's spread (the larger of the two pairs' differences, and 2% of
+    their mean)."""
     from applecider_tpu_torch.ops import flash_attention as fa
     from applecider_tpu_torch.ops import flash_microab as fm
     from applecider_tpu_torch.tools import flash_microab as tool
@@ -840,26 +924,30 @@ def time_flash_ladder(dev) -> tuple[list, dict]:
         plain = time_ms(lambda: fm.flash_forward_ablation_reference(q, k, v, mask, mode, tool.RATE,
                                                                     tool.SEED), iters=2, reps=3)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(f"K4x ladder {mode} {shape} bf16: kernel {r['ms']:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
-            f"launches {launches[LADDER_PREFIX + mode]}")
+        log(f"K4x ladder {mode} {shape} bf16 ({r['route']}): kernel {r['ms']:.4f} ms "
+            f"(FMA kernel earlier: {LADDER_FMA_EARLIER_MS[mode]:.4f}), plain {plain:.4f} ms, sdpa {lib}, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), launches {launches[LADDER_PREFIX + mode]}")
         line = 79 if mode.startswith("batched") else 41
-        records.append(dict(name=LADDER_PREFIX + mode, route="cuda",
+        records.append(dict(name=LADDER_PREFIX + mode, route="cuda", kernel=r["route"],
                             source="applecider_tpu_torch/csrc/flash_attention.cu",
                             replaces=f"scripts/tpu_flash_microab.py:{line}", shape=shape,
                             dtype="bfloat16", ms=r["ms"], plain_ms=plain, bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     for name, st in report["stages"].items():
         log(f"K4x split of full: {name} {st['ms']:+.4f} ms ({st['share_of_full']:+.1%})")
-    fma, mma = [], []
-    for timed in (fma, mma, mma, fma):
-        if timed is fma:
+    rung, k4a = [], []
+    for timed in (rung, k4a, k4a, rung):
+        if timed is rung:
             timed.append(time_ms(lambda: fm.flash_forward_ablation(q, k, v, mask, "full", tool.RATE, tool.SEED)))
         else:
             timed.append(time_ms(lambda: fa.flash_forward(q, k, v, mask, tool.RATE, seed=tool.SEED)))
-    log(f"K4a forward on the ladder's inputs ({shape} bf16), in turns: FMA full (the ladder's rung) "
-        f"{fma[0]:.4f}, {fma[1]:.4f} ms; tensor-core forward (ac_flash_fwd) {mma[0]:.4f}, {mma[1]:.4f} ms; "
-        f"FMA / tensor cores {np.mean(fma) / np.mean(mma):.2f}")
+    gap = abs(np.mean(rung) - np.mean(k4a))
+    spread = max(abs(rung[0] - rung[1]), abs(k4a[0] - k4a[1]), 0.02 * np.mean(rung + k4a))
+    log(f"K4a forward on the ladder's inputs ({shape} bf16), in turns: the ladder's full {rung[0]:.4f}, "
+        f"{rung[1]:.4f} ms; flash_forward(seed) {k4a[0]:.4f}, {k4a[1]:.4f} ms; gap {gap:.4f} ms "
+        f"(<= spread {spread:.4f} ms required)")
+    if gap > spread:
+        raise SystemExit("the ladder's full and K4a's forward, one kernel, timed apart beyond the run's spread")
     return records, launches
 
 

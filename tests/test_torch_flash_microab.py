@@ -95,7 +95,7 @@ def _port(mode, q, k, v, pad, dtype, **kw):
 DTYPES = [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)]
 
 
-@pytest.mark.parametrize("L", [24, 40])
+@pytest.mark.parametrize("L", [17, 24, 40])
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("mode", ["no_prng", "matmul_only", "batched4", "batched8"])
 def test_plain_rung_matches_the_jax_ladder(script, mode, dtypes, L):
@@ -114,7 +114,7 @@ def test_plain_rung_matches_the_jax_ladder(script, mode, dtypes, L):
     assert (d <= lim).all(), float(d.max())
 
 
-@pytest.mark.parametrize("L", [24, 40])
+@pytest.mark.parametrize("L", [17, 24, 40])
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
 def test_matmul_only_without_padding_matches_the_jax_ladder(script, dtypes, L):
     """No padded key: no -1e9 in the sums, M = sum_j |p_j||v_j| is O(L),
@@ -174,6 +174,45 @@ def test_wrapper_refuses(case, match):
     mode = {"meta": "no_prng", "unknown": "no_softmax"}.get(case, case.split("_")[0])
     with pytest.raises(ValueError, match=match):
         fm.flash_forward_ablation(q, q, q, None, mode)
+
+
+@pytest.mark.parametrize("mode", fm.MODES)
+def test_route_names_the_forward_of_each_dtype(mode):
+    """bf16 rungs launch the tensor-core forward the training step runs
+    (``full`` its Philox instantiation, ``batched{N}`` its N-heads form),
+    f32 rungs the FMA one."""
+    bf16, f32 = fm.route(mode, torch.bfloat16), fm.route(mode, torch.float32)
+    if mode.startswith("batched"):
+        assert (bf16, f32) == ("flash_fwd_mma_pairs_kernel", "flash_fwd_pairs_kernel")
+    else:
+        assert bf16.startswith("flash_fwd_mma_kernel<") and f32.startswith("flash_fwd_kernel<")
+        assert bf16.removeprefix("flash_fwd_mma_kernel") == f32.removeprefix("flash_fwd_kernel")
+    want = {"full": "<kPhilox>", "no_prng": "<kKeepAll>", "prng_only_no_apply": "<kDrawOnly>",
+            "matmul_only": "<kMatmulOnly>"}
+    if mode in want:
+        assert bf16.endswith(want[mode])
+
+
+def test_route_refuses_unknown_modes_and_dtypes():
+    with pytest.raises(ValueError, match="unknown mode"):
+        fm.route("no_softmax", torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fm.route("full", torch.float16)
+
+
+@pytest.mark.parametrize("L, hd", [(1, 16), (17, 16), (33, 8), (40, 32)])
+def test_matmul_only_reads_back_its_rounded_scores(L, hd):
+    """chip_smoke's check of the bf16 ``matmul_only`` kernel reads the
+    rung's bf16 scores back through the rung with one-hot V; on the plain
+    version that read-back is exact (no score flips, no allowance), at
+    tile tails and every head width, padded keys included."""
+    import chip_smoke
+
+    q, k, v, pad = _inputs(L, B=2, H=4, hd=hd)
+    ts = [torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)]
+    pad[:, 0] = False
+    D, flips, stray = chip_smoke._matmul_only_flips(*ts, torch.from_numpy(pad))
+    assert (flips, stray) == (0, 0) and D.shape == ts[0].shape and not D.any()
 
 
 def test_plain_batched8_runs_on_the_cpu_at_the_train_length():
