@@ -1,6 +1,5 @@
-"""Photometry event sequences (counterpart of the pieces of
-``applecider_tpu/datasets/photo_dataset.py`` that the fusion dataset and
-the preprocessing use):
+"""Photometry event sequences (counterpart of
+``applecider_tpu/datasets/photo_dataset.py``):
 
 * the coarse 5-class taxonomy keyed by class name (SN I / SN II / CV /
   AGN / TDE);
@@ -10,7 +9,13 @@ the preprocessing use):
 * ``collate_photometry``: pad to max(257, longest), truncate to 257, with
   a boolean pad mask (True = padding);
 * the train-set stats of the four transformed channels, written by
-  ``compute_photo_feature_stats`` and read by ``load_photo_stats``.
+  ``compute_photo_feature_stats`` and read by ``load_photo_stats``;
+* ``PhotoEventsDataset``, the photometry-only dataset of the BaselineCLS
+  classifier and its MPT pretraining: one sample per manifest row (sorted
+  by ``object_id``), the horizon-cut (L, 7) features, the coarse label,
+  the train stats, and optional oversampling toward an ideal class
+  distribution. Its config section keeps the JAX package's name
+  (``SECTION``), so one run TOML drives both packages.
 
 Manifests are read with ``preprocessing.table`` (no pandas).
 """
@@ -21,7 +26,9 @@ from pathlib import Path
 
 import numpy as np
 
+from applecider_tpu_torch.datasets.oversampler import Oversampler
 from applecider_tpu_torch.preprocessing.table import read_csv
+from applecider_tpu_torch.registry import register_dataset
 
 COARSE_CLASSES = ("SN I", "SN II", "Cataclysmic", "AGN", "Tidal Disruption Event")
 
@@ -90,6 +97,63 @@ def collate_photometry(samples: list[dict], max_len: int = DEFAULT_MAX_LEN) -> d
     if "label" in samples[0]:
         out["label"] = np.asarray([s["label"] for s in samples], np.int64)
     return {"data": out}
+
+
+@register_dataset(name="PhotoEventsDataset")
+class PhotoEventsDataset:
+    SECTION = "applecider_tpu.datasets.photo_dataset.PhotoEventsDataset"
+
+    def __init__(self, config, data_location=None):
+        section = config["data_set"][self.SECTION]
+        manifest = read_csv(section.get("manifest_path") or data_location)
+        self.manifest = manifest.take(np.argsort(manifest["object_id"], kind="stable"))
+        self.horizon = float(section.get("horizon", 100.0))
+        self.max_len = int(section.get("max_len", DEFAULT_MAX_LEN))
+        stats_path = section.get("stats_path", "")
+        if stats_path and Path(stats_path).exists():
+            self.mean, self.std = load_photo_stats(stats_path)
+        else:
+            self.mean = np.zeros(4, np.float32)
+            self.std = np.ones(4, np.float32)
+        self.coarse_labels = np.asarray(
+            [self._coarse_label(i) for i in range(len(self.manifest))], np.int64)
+        self.oversampler = None
+        if bool(section.get("use_oversampling", False)):
+            self.oversampler = Oversampler(
+                section.get("ideal_class_distribution", [0.3, 0.1, 0.1, 0.3, 0.1]),
+                self.coarse_labels,
+                seed=int(config.get_path("data_loader.seed", default=42)),
+            )
+
+    def _coarse_label(self, row: int) -> int:
+        """The class name's coarse label, else ``label`` modulo the five
+        classes, else 0."""
+        if "label_str" in self.manifest:
+            name = self.manifest["label_str"][row]
+            if isinstance(name, str) and name in TAXONOMY_BY_NAME:
+                return TAXONOMY_BY_NAME[name]
+        label = self.manifest["label"][row] if "label" in self.manifest else 0
+        return int(label) % len(COARSE_CLASSES)
+
+    def __len__(self) -> int:
+        return len(self.oversampler) if self.oversampler is not None else len(self.manifest)
+
+    def _resolve(self, idx: int) -> int:
+        if self.oversampler is not None:
+            idx, _ = self.oversampler.resolve(idx)
+        return idx
+
+    def sample(self, idx: int) -> dict:
+        row = self._resolve(idx)
+        dt, rest, band = load_event_sequence(self.manifest["filepath"][row])
+        return {"photometry": build_photo_features(dt, rest, band, self.horizon),
+                "label": int(self.coarse_labels[row]), "mean": self.mean, "std": self.std}
+
+    def collate(self, samples: list[dict]) -> dict:
+        return collate_photometry(samples, max_len=self.max_len)
+
+
+register_dataset(PhotoEventsDataset, name=PhotoEventsDataset.SECTION)
 
 
 def load_photo_stats(path: str | Path) -> tuple[np.ndarray, np.ndarray]:

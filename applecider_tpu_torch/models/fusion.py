@@ -1,7 +1,8 @@
 """AppleCider four-modality late-fusion model (counterpart of
-``applecider_tpu/models/fusion.py``), ``build_fusion_model``, and the
-pieces of ``AppleCiderTask`` the training step needs: ``fusion_loss`` and
-``to_tensor``.
+``applecider_tpu/models/fusion.py``), ``build_fusion_model``, and
+``AppleCiderTask``, the model's training task: ``fusion_loss`` (cross
+entropy or focal loss, and accuracy), Adam at ``model.AppleCider.lr``,
+the clip ``model.AppleCider.grad_clip``, and ``to_tensor``.
 
 Each encoder's embedding is projected to ``hidden_dim`` in f32, L2
 normalised and fused by average (or concatenation, in the order
@@ -17,6 +18,7 @@ from torch import nn
 from applecider_tpu_torch.config import Config, compute_dtype, load_defaults
 from applecider_tpu_torch.device import resolve_device
 from applecider_tpu_torch.models.astrominn import AstroMiNNModule
+from applecider_tpu_torch.models.base import Task, adam, maybe_softmax
 from applecider_tpu_torch.models.baseline_cls import BaselineCLSModule
 from applecider_tpu_torch.models.layers import Linear, init_weights
 from applecider_tpu_torch.models.spectranet import SpectraNetModule
@@ -160,3 +162,33 @@ def to_tensor(data_dict: dict) -> tuple[np.ndarray, ...]:
     spectra = np.asarray(data["spectrum"], dtype=np.float32)
     labels = np.asarray(data.get("label", []), dtype=np.int64)
     return (photo, pad_mask, metadata, images, spectra, labels)
+
+
+class AppleCiderTask(Task):
+    """The fusion model ``module`` (from ``build_fusion_model``) as a
+    ``Task``; batches are ``to_tensor``'s six arrays."""
+
+    name = "AppleCider"
+
+    def __init__(self, cfg: Config, module: AppleCiderModule):
+        super().__init__(cfg)
+        self.fc_cfg = cfg["model"]["AppleCider"]
+        self.grad_clip = float(self.fc_cfg.get("grad_clip", 1.0))
+        self.module = module
+
+    def loss(self, batch, train: bool = True, kernels: bool = True):
+        photometry, photo_mask, metadata, images, spectra, labels = batch
+        self.module.train(train)
+        logits = self.module(photometry, photo_mask, metadata, images, spectra, kernels=kernels)
+        loss, acc = fusion_loss(logits, labels, self.cfg)
+        return loss, {"metrics": {"loss": loss, "accuracy": acc}, "logits": logits}
+
+    def predict(self, batch, kernels: bool = True):
+        self.module.eval()
+        logits = self.module(*batch[:5], kernels=kernels)
+        return maybe_softmax(logits, bool(self.fc_cfg.get("use_probabilities", False)))
+
+    def make_optimizer(self, params):
+        return adam(params, float(self.fc_cfg.get("lr", 1e-4)))
+
+    to_tensor = staticmethod(to_tensor)

@@ -4,15 +4,23 @@ Models and datasets register under a short name and their full dotted path,
 so run configs select them either way. The port registers what it has:
 
 * ``"AppleCider"`` and ``"Fusion"``: ``models.fusion.build_fusion_model``,
-  the factory of the port's ``AppleCiderModule`` (``factory(cfg, device=)``);
-* ``"FusionDataset"`` and ``"CiDErDataset"``: ``datasets.fusion_dataset``.
+  the factory of the port's ``AppleCiderModule`` (``factory(cfg, device=,
+  generator=)``), which ``AppleCiderTask`` wraps for training;
+* ``"BaselineCLS"`` and ``"HyraxBaselineCLS"``: ``models.baseline_cls.
+  BaselineCLSTask``; ``"MPT"`` and ``"MPTModel"``: ``models.mpt.MPTTask``
+  (tasks, built the same way);
+* ``"FusionDataset"`` and ``"CiDErDataset"``: ``datasets.fusion_dataset``;
+  ``"PhotoEventsDataset"``: ``datasets.photo_dataset``.
 
-The JAX package's dotted names of these two (``applecider_tpu.models.fusion.
-AppleCiderTask``, ``applecider_tpu.datasets.fusion_dataset.FusionDataset``)
-map to them, so the same run TOML drives both packages. Any other dotted name
-under ``applecider_tpu.`` raises ``KeyError``: the port never imports the JAX
-package. A short name the JAX package registers but the port has not ported
-yet raises ``NotImplementedError`` naming its ROADMAP item.
+The JAX package's dotted names of these (``applecider_tpu.models.fusion.
+AppleCiderTask``, ``applecider_tpu.models.baseline_cls.BaselineCLSTask``,
+``applecider_tpu.models.mpt.MPTTask``, ``applecider_tpu.datasets.
+fusion_dataset.FusionDataset``, ``applecider_tpu.datasets.photo_dataset.
+PhotoEventsDataset``) map to them, so the same run TOML drives both
+packages. Any other dotted name under ``applecider_tpu.`` raises
+``KeyError``: the port never imports the JAX package. A short name the JAX
+package registers but the port has not ported yet raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,22 +32,21 @@ _MODEL_REGISTRY: dict[str, Any] = {}
 _DATASET_REGISTRY: dict[str, Any] = {}
 
 # the port's modules that register entries, imported on a registry miss
-_MODEL_MODULES = ["applecider_tpu_torch.models.fusion"]
-_DATASET_MODULES = ["applecider_tpu_torch.datasets.fusion_dataset"]
+_MODEL_MODULES = ["applecider_tpu_torch.models.fusion", "applecider_tpu_torch.models.baseline_cls",
+                  "applecider_tpu_torch.models.mpt"]
+_DATASET_MODULES = ["applecider_tpu_torch.datasets.fusion_dataset",
+                    "applecider_tpu_torch.datasets.photo_dataset"]
 
 _TASKS = "ROADMAP.md Queue A item 6 (single-modality tasks)"
 _UNPORTED_MODELS = {
-    "BaselineCLS": _TASKS, "HyraxBaselineCLS": _TASKS, "SpectraNet": _TASKS,
-    "SpectraNetTriPool": _TASKS, "AstroMiNN": _TASKS,
-    "MPT": "ROADMAP.md Queue A item 2 (MPT pretraining)",
-    "MPTModel": "ROADMAP.md Queue A item 2 (MPT pretraining)",
+    "SpectraNet": _TASKS, "SpectraNetTriPool": _TASKS, "AstroMiNN": _TASKS,
     **{name: "ROADMAP.md Queue A item 7 (models/zoo.py)" for name in (
         "BTSModel", "GalSpecNet", "MetaModel", "Informer", "SpectraViT",
         "SpectraEfficientNetV2", "SpectraConvNeXt")},
 }
 _UNPORTED_DATASETS = {
     name: "ROADMAP.md Queue A item 6 (single-modality datasets)" for name in (
-        "PhotoEventsDataset", "ImageAndMetadataDataset", "SpectraDataset", "SpectraData",
+        "ImageAndMetadataDataset", "SpectraDataset", "SpectraData",
         "LogitSequenceDataset")
 }
 
@@ -83,7 +90,8 @@ def _resolve(registry: dict, name: str, modules: list[str], unported: dict[str, 
 
 
 def get_model(name: str) -> Callable:
-    """The model factory registered under ``name``: ``factory(cfg, device=)``."""
+    """The model factory or task class registered under ``name``:
+    ``factory(cfg, device=, generator=)``."""
     return _resolve(_MODEL_REGISTRY, name, _MODEL_MODULES, _UNPORTED_MODELS, "model")
 
 

@@ -32,7 +32,7 @@ import torch
 from applecider_tpu_torch.config import load_defaults
 from applecider_tpu_torch.device import card_name_and_power
 from applecider_tpu_torch.models import build_fusion_model
-from applecider_tpu_torch.models.fusion import to_tensor
+from applecider_tpu_torch.models.fusion import AppleCiderTask, to_tensor
 from applecider_tpu_torch.testing import SyntheticFusionDataset
 from applecider_tpu_torch.train.trainer import Trainer
 
@@ -43,10 +43,9 @@ WORKDIR = Path(__file__).resolve().parents[2] / "build" / "profile_training"
 def step_phases(trainer: Trainer, batch) -> dict:
     """One train step with CUDA events between its phases."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    trainer.model.train()
-    trainer.optimizer.zero_grad(set_to_none=True)
+    trainer.model.zero_grad(set_to_none=True)
     ev[0].record()
-    loss, _ = trainer.loss_and_accuracy(batch)
+    loss, _ = trainer.task.loss(batch)
     ev[1].record()
     loss.backward()
     ev[2].record()
@@ -121,7 +120,7 @@ def main() -> None:
     cfg = load_defaults()
     model = build_fusion_model(cfg, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
     shutil.rmtree(WORKDIR, ignore_errors=True)
-    trainer = Trainer(model, cfg, WORKDIR)
+    trainer = Trainer(AppleCiderTask(cfg, model), cfg, WORKDIR)
     data = SyntheticFusionDataset(BATCH * 4, seed=2)
     batches = [trainer.to_device(to_tensor(data.collate([data.sample(i) for i in range(s, s + BATCH)])))
                for s in range(0, BATCH * 4, BATCH)]

@@ -1,10 +1,12 @@
 """Config-driven run verbs (counterpart of ``applecider_tpu/train/runtime.py``):
 ``prepare``, ``train``, ``infer``, ``serve`` and ``warmup``.
 
-* The model and the per-phase datasets come from the TOML config
+* The task and the per-phase datasets come from the TOML config
   (``model.name``; ``[model_inputs.<phase>.data]`` with ``dataset_class``
   and ``data_location``) through the port's registry; ``set_config``
-  changes a key.
+  changes a key. ``train`` and ``infer`` run any registered task (the
+  fusion model, ``BaselineCLS``, ``MPT``); ``serve`` and ``warmup`` run the
+  fusion model and refuse another.
 * Each verb writes into a timestamped run directory under ``workdir``;
   ``infer`` and ``serve`` load the weights of the most recent trained run
   (``checkpoints/best.pt``, else ``last.pt``), built from the config alone:
@@ -38,6 +40,8 @@ from applecider_tpu_torch.datasets.fusion_dataset import FusionDataset
 from applecider_tpu_torch.datasets.loader import DataLoader
 from applecider_tpu_torch.datasets.photo_dataset import load_photo_stats
 from applecider_tpu_torch.device import resolve_device
+from applecider_tpu_torch.models.base import Task
+from applecider_tpu_torch.models.fusion import AppleCiderTask
 from applecider_tpu_torch.registry import get_dataset_class, get_model
 from applecider_tpu_torch.train.trainer import Trainer, refuse_unported
 
@@ -55,12 +59,24 @@ class AppleCiderRuntime:
         self.config.set(path, value)
 
     # ----------------------------------------------------------- components
-    def _task(self) -> torch.nn.Module:
-        """The configured model, its weights drawn from ``train.seed``."""
+    def _task(self) -> Task:
+        """The configured task, its weights drawn from ``train.seed``; the
+        fusion model's factory is wrapped in ``AppleCiderTask``."""
         name = self.config.get_path("model.name", default="BaselineCLS")
         seed = int(self.config.get_path("train.seed", 42))
-        return get_model(name)(self.config, device=self.device,
-                               generator=torch.Generator().manual_seed(seed))
+        built = get_model(name)(self.config, device=self.device,
+                                generator=torch.Generator().manual_seed(seed))
+        return built if isinstance(built, Task) else AppleCiderTask(self.config, built)
+
+    def _fusion_task(self) -> AppleCiderTask:
+        """``_task()``, which must be the fusion model: serving runs it alone."""
+        task = self._task()
+        if not isinstance(task, AppleCiderTask):
+            raise ValueError(
+                f"serve and warmup run the AppleCider fusion model; model.name = "
+                f"{self.config.get_path('model.name', default='BaselineCLS')!r} builds "
+                f"{type(task).__name__}")
+        return task
 
     def _dataset(self, phase: str):
         section = self.config.section("model_inputs", phase, "data")
@@ -102,24 +118,28 @@ class AppleCiderRuntime:
             raise FileNotFoundError(f"no trained run under {self.workdir}")
         return candidates[-1]
 
-    def train(self) -> dict:
+    def train(self, init_params: dict | None = None) -> dict:
+        """Fit the configured task on the train dataset, validating on the
+        validate one where bound; ``init_params`` (a state_dict, e.g.
+        ``models.mpt.warmstart_classifier_params``'s) are its starting
+        weights in place of the drawn ones."""
         if "train" not in self.datasets:
             self.prepare()
-        model = self._task()
+        task = self._task()
         self._run_dir = self._new_run_dir("train")
-        trainer = Trainer(model, self.config, self._run_dir, device=self.device)
+        trainer = Trainer(task, self.config, self._run_dir, device=self.device)
         train_loader = self._loader(self.datasets["train"], shuffle=True)
         val_loader = (self._loader(self.datasets["validate"], shuffle=False)
                       if "validate" in self.datasets else None)
-        results = trainer.fit(train_loader, val_loader)
+        results = trainer.fit(train_loader, val_loader, init_params=init_params)
         results["run_dir"] = self._run_dir
         return results
 
-    def _restore_latest(self) -> Trainer:
-        """A Trainer over a fresh model holding the latest trained run's
-        weights (``best``, else ``last``)."""
+    def _restore_latest(self, task: Task | None = None) -> Trainer:
+        """A Trainer over ``task`` (default: a fresh one) holding the latest
+        trained run's weights (``best``, else ``last``)."""
         run_dir = self._run_dir or self._latest_run_dir()
-        trainer = Trainer(self._task(), self.config, run_dir, device=self.device)
+        trainer = Trainer(task or self._task(), self.config, run_dir, device=self.device)
         trainer.restore_weights()
         return trainer
 
@@ -161,14 +181,14 @@ class AppleCiderRuntime:
         return float(self.config.section("data_set", FusionDataset.SECTION).get("horizon", 100.0))
 
     def _serving_model(self, params=None) -> torch.nn.Module:
-        """The model for serving: ``params`` (a state_dict) if given, else
-        the latest trained run's weights; eval mode, no gradients."""
+        """The fusion model for serving: ``params`` (a state_dict) if given,
+        else the latest trained run's weights; eval mode, no gradients."""
+        task = self._fusion_task()
         if params is None:
-            model = self._restore_latest().model
+            self._restore_latest(task)
         else:
-            model = self._task()
-            model.load_state_dict(params)
-        return model.eval().requires_grad_(False)
+            task.module.load_state_dict(params)
+        return task.module.eval().requires_grad_(False)
 
     def serve(self, raw_path: str | Path | None = None, params=None) -> dict:
         """Classify every alert of a raw-data directory, per-alert causal.
@@ -239,7 +259,7 @@ class AppleCiderRuntime:
             model = self._serving_model(params)
         except FileNotFoundError as e:
             warnings.warn(f"warmup runs with random weights: {e}", stacklevel=2)
-            model = self._task().eval().requires_grad_(False)
+            model = self._fusion_task().module.eval().requires_grad_(False)
         sec = self.config.section("serve")
         bs = int(batch_size or sec.get("batch_size", 1024))
         buckets = tuple(sec.get("length_buckets", (63, 127, 191, 255, 257)))

@@ -86,7 +86,22 @@ Phases, in order; any failure exits non-zero before the result line:
    ``python -m applecider_tpu_torch.infer.cli`` as a subprocess (exit 0,
    the same alert count) -> ``warmup`` twice (every length bucket x every
    spectra bucket at batch 1024);
-7. one JSON line describing each kernel, then the result line.
+7. the photometry model family at the published widths: (a) five MPT and
+   five BaselineCLS classifier steps of 256 staged light curves in bf16,
+   timed with CUDA events (ms, samples/s, peak GiB), K4 forward and
+   backward 4 a step and no other kernel; (b) one f32 MPT step and one
+   classifier step (TF32 off, dropout live) on the kernel path and the
+   plain path with the same weights, draws and mask, within phase 5's
+   limits, and the classifier's eval logits, K2 against plain, within
+   1e-4; (c) the reference recipe through the entry points on a learnable
+   ``make_corpus`` corpus of 100 objects run through ``preprocess_data``:
+   ``AppleCiderRuntime("configs/photometry.toml")`` with ``model.name =
+   "MPT"`` for 2 epochs (its loss falls) -> ``warmstart_classifier_params``
+   -> the classifier with the trunk frozen for 1 epoch (the trunk
+   unmoved, K4's backward still 4 a step) -> unfrozen with plateau 0.5,
+   accumulation 2 and EMA 0.99 for 2 epochs (``best.pt``, ``last.pt``) ->
+   ``infer`` (finite (n, 5)), K2 4 a validation or inference batch;
+8. one JSON line describing each kernel, then the result line.
 
 It imports nothing of JAX.
 """
@@ -1457,16 +1472,17 @@ def check_training(card: str, workdir: Path, batch_size: int = 256, steps: int =
     from applecider_tpu_torch.config import load_defaults
     from applecider_tpu_torch.datasets.loader import DataLoader
     from applecider_tpu_torch.models import build_fusion_model
-    from applecider_tpu_torch.models.fusion import to_tensor
+    from applecider_tpu_torch.models.fusion import AppleCiderTask, to_tensor
     from applecider_tpu_torch.testing import SyntheticFusionDataset
     from applecider_tpu_torch.train.trainer import Trainer
 
     cfg = load_defaults()
     model = build_fusion_model(cfg, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    task = AppleCiderTask(cfg, model)
     before = [p.detach().clone() for p in model.parameters()]
     data = SyntheticFusionDataset(batch_size * steps, seed=2)
     loader = DataLoader(data, batch_size=batch_size, seed=0, drop_last=True, prefetch=2)
-    trainer = Trainer(model, cfg, workdir)
+    trainer = Trainer(task, cfg, workdir)
     times = _timed_steps(trainer)
     torch.cuda.reset_peak_memory_stats()
     counters = zero_counters()
@@ -1496,7 +1512,7 @@ def check_training(card: str, workdir: Path, batch_size: int = 256, steps: int =
                          f"{wrong}; serving kernels launched: {stray}")
 
     # resume: a new Trainer on the same workdir continues at epoch 1
-    resumed = Trainer(model, cfg, workdir).fit(
+    resumed = Trainer(task, cfg, workdir).fit(
         DataLoader(SyntheticFusionDataset(batch_size, seed=3), batch_size=batch_size, seed=0,
                    drop_last=True), epochs=2)
     epochs_run = [r["epoch"] for r in resumed["history"]]
@@ -1508,12 +1524,11 @@ def check_training(card: str, workdir: Path, batch_size: int = 256, steps: int =
     # autograd reaches K2
     batch = trainer.to_device(to_tensor(loader.dataset.collate(
         [loader.dataset.sample(i) for i in range(8)])))
-    model.eval()
     counters = zero_counters()
-    loss, _ = trainer.loss_and_accuracy(batch)
+    loss, _ = task.loss(batch, train=False)
     loss.backward()
     with torch.no_grad():
-        trainer.loss_and_accuracy(batch)
+        task.loss(batch, train=False)
     routes = {name: k.launches for name, k in counters.items()}
     log(f"eval forward+backward with autograd, then eval forward without: launches {routes}")
     if routes["flash_attention_fwd"] != 4 or routes["flash_attention_bwd"] != 4 \
@@ -1585,7 +1600,7 @@ def check_training_parity(workdir: Path, batch_size: int = 32, lr: float = 1e-4)
 
     from applecider_tpu_torch.config import load_defaults
     from applecider_tpu_torch.models import build_fusion_model
-    from applecider_tpu_torch.models.fusion import to_tensor
+    from applecider_tpu_torch.models.fusion import AppleCiderTask, to_tensor
     from applecider_tpu_torch.ops.ln_gelu import ln_gelu_backward_reference
     from applecider_tpu_torch.testing import SyntheticFusionDataset
     from applecider_tpu_torch.train.trainer import Trainer
@@ -1599,7 +1614,7 @@ def check_training_parity(workdir: Path, batch_size: int = 32, lr: float = 1e-4)
     host = to_tensor(data.collate([data.sample(i) for i in range(batch_size)]))
     out = {}
     for name, model, kernels in (("kernel", model_k, True), ("plain", model_p, False)):
-        trainer = Trainer(model, cfg, workdir / name, seed=11)
+        trainer = Trainer(AppleCiderTask(cfg, model), cfg, workdir / name, seed=11)
         records, handles = _record_ln_gelu(model)
         with no_tf32():
             m = trainer.train_step(trainer.to_device(host), kernels=kernels)
@@ -1781,7 +1796,7 @@ def check_workflow(card: str, n_objects: int = 96, epochs: int = 3, batch_size: 
         steps = history[-1]["steps"]
         records = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
         ckpts = {t: (run_dir / "checkpoints" / f"{t}.pt").exists() for t in ("best", "last")}
-        init = rt._task().state_dict()
+        init = rt._task().module.state_dict()
         last = torch.load(run_dir / "checkpoints" / "last.pt", map_location=dev,
                           weights_only=True)["params"]
         moved = sum(int(not torch.equal(init[k], last[k])) for k in init)
@@ -1886,6 +1901,299 @@ def check_workflow(card: str, n_objects: int = 96, epochs: int = 3, batch_size: 
     return result
 
 
+# ------------------------------------------------------------- phase 7
+# launches per photometry step: K4 forward and backward in each of the 4
+# attention layers, nothing else; per validation or inference batch (no
+# autograd): K2 in each attention layer
+PHOTOMETRY_STEP_KERNELS = {"flash_attention_fwd": 4, "flash_attention_bwd": 4}
+
+
+def _require_photometry_launches(launches: dict, steps: int, eval_batches: int, what: str,
+                                 on_card: bool) -> None:
+    """K4 forward and backward 4 a step, K2 4 an evaluation batch, no other
+    kernel."""
+    want = {n: per * steps for n, per in PHOTOMETRY_STEP_KERNELS.items()}
+    want["masked_attention"] = EVAL_KERNELS["masked_attention"] * eval_batches
+    wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    stray = [n for n in launches if n not in want and launches[n]]
+    log(f"  launches in {what} ({steps} steps, {eval_batches} evaluation batches): "
+        f"{ {n: v for n, v in launches.items() if v} }")
+    if on_card and (wrong or stray):
+        raise SystemExit(f"{what} launches (got, expected): {wrong}; stray {stray}")
+
+
+def _photometry_tasks():
+    from applecider_tpu_torch.models.baseline_cls import BaselineCLSTask
+    from applecider_tpu_torch.models.mpt import MPTTask
+
+    return (("MPT", MPTTask), ("BaselineCLS", BaselineCLSTask))
+
+
+def _photometry_batches(n_batches: int, batch_size: int, seed: int) -> list:
+    """``BaselineCLSTask.to_tensor`` batches of ``SyntheticFusionDataset``
+    light curves: U(8, 257) events with one-hot bands, labels in [0, 5)."""
+    from applecider_tpu_torch.models.baseline_cls import BaselineCLSTask
+    from applecider_tpu_torch.testing import SyntheticFusionDataset
+
+    data = SyntheticFusionDataset(n_batches * batch_size, seed=seed)
+    return [BaselineCLSTask.to_tensor(data.collate([data.sample(i) for i in range(s, s + batch_size)]))
+            for s in range(0, n_batches * batch_size, batch_size)]
+
+
+def photometry_staged_steps(card: str, workdir: Path, cfg, dev, batch_size: int = 256,
+                            steps: int = 5) -> dict:
+    """Phase 7a: ``steps`` MPT and classifier steps on batches already on the
+    card, each after one step of first launches, timed with CUDA events
+    (host clock on the CPU); launches read from the timed steps alone."""
+    import torch
+
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    on_card = dev.type == "cuda"
+    hosts = _photometry_batches(2, batch_size, seed=5)
+    out = {}
+    for name, cls in _photometry_tasks():
+        task = cls(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(task, cfg, workdir / name, device=dev)
+        batches = [trainer.to_device(h) for h in hosts]
+        trainer.train_step(batches[0])
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        counters = zero_counters()
+        times, losses = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            if on_card:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            m = trainer.train_step(batches[i % 2])
+            if on_card:
+                ev[1].record()
+                times.append(ev)
+            else:
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"])
+        if on_card:
+            torch.cuda.synchronize()
+            times = [a.elapsed_time(b) for a, b in times]
+        launches = _kernel_launches(counters)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        losses = [float(x) for x in losses]
+        med = float(np.median(times))
+        log(f"photometry {name} steps, {cfg.get_path('train.compute_dtype')}, d_model "
+            f"{cfg.get_path('model.BaselineCLS.d_model')} x {cfg.get_path('model.BaselineCLS.n_layers')} "
+            f"layers, batch {batch_size}, staged: "
+            f"ms {', '.join(f'{t:.3f}' for t in times)}; median {med:.3f} ms, "
+            f"{batch_size / med * 1e3:.1f} samples/s; peak memory {peak:.2f} GiB; losses "
+            f"{[round(x, 4) for x in losses]} [{card}]")
+        if not all(np.isfinite(losses)):
+            raise SystemExit(f"photometry {name} steps: loss not finite")
+        _require_photometry_launches(launches, steps, 0, f"the {name} steps", on_card)
+        out[name] = {"step_ms": times, "median_ms": med, "samples_per_s": batch_size / med * 1e3,
+                     "peak_gib": peak, "launches": launches}
+        del trainer, task, batches
+    return out
+
+
+def photometry_parity(workdir: Path, dev, batch_size: int = 32,
+                      model_overrides: dict | None = None) -> dict:
+    """Phase 7b: one f32 MPT step and one classifier step (TF32 off, dropout
+    live) on the kernel path and the plain path, with the same weights, the
+    same dropout draws (equal generators) and so the same MPT mask; phase
+    5's limits: |dloss| <= 1e-5, each gradient within 1e-4 * max(1, max|g|),
+    parameters after the step within 1e-6 where |g| >= max(1e-5, tol) and
+    within 2 * lr + 1e-7 elsewhere (Adam's first step moves an entry whose
+    two gradients differ in sign, which only one below the tolerance can,
+    by up to 2 * lr: the attention's key bias, whose gradient is zero but
+    for rounding, is such an entry). Then the classifier's eval logits, K2
+    against its plain version on the same weights, within 1e-4."""
+    import torch
+
+    from applecider_tpu_torch.config import load_defaults
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    cfg = load_defaults().merged_with(model_overrides or {})
+    cfg.set("train.compute_dtype", "float32")
+    host = _photometry_batches(1, batch_size, seed=6)[0]
+    out = {}
+    for name, cls in _photometry_tasks():
+        task_k = cls(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        task_p = copy.deepcopy(task_k)
+        steps = {}
+        for path, task, kernels in (("kernel", task_k, True), ("plain", task_p, False)):
+            trainer = Trainer(task, cfg, workdir / f"{name}_{path}", device=dev, seed=11)
+            with no_tf32():
+                m = trainer.train_step(trainer.to_device(host), kernels=kernels)
+            lr = trainer.optimizer.param_groups[0]["lr"]
+            steps[path] = (float(m["loss"]), {n: p.grad.detach().clone()
+                                              for n, p in task.module.named_parameters()})
+        (lk, gk), (lp, gp) = steps["kernel"], steps["plain"]
+        ok = abs(lk - lp) <= 1e-5
+        g_err, p_err, worst = 0.0, 0.0, ""
+        for (n, pk), pp in zip(task_k.module.named_parameters(), task_p.module.parameters()):
+            d = (gk[n] - gp[n]).abs().max().item()
+            lim = 1e-4 * max(1.0, gp[n].abs().max().item())
+            if d / lim > g_err:
+                g_err, worst = d / lim, n
+            dp = (pk.detach() - pp.detach()).abs()
+            big = gp[n].abs() >= max(1e-5, lim)
+            p_err = max(p_err, float(dp[big].max()) if big.any() else 0.0)
+            ok = ok and d <= lim and bool((dp[big] <= 1e-6).all()) and \
+                bool((dp <= 2 * lr + 1e-7).all())
+        log(f"photometry {name} f32 step (TF32 off, dropout live, batch {batch_size}), kernel vs "
+            f"plain: loss {lk:.7f} vs {lp:.7f} (|d| {abs(lk - lp):.3g} <= 1e-5); worst gradient "
+            f"at {g_err:.3g} of its bound ({worst}); post-step params max|d| where |g| >= "
+            f"max(1e-5, tol) {p_err:.3g} (<= 1e-6) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the f32 {name} step disagrees between the kernel and plain paths")
+        out[name] = {"loss_err": abs(lk - lp), "grad_err_of_bound": g_err, "param_err": p_err}
+        if name == "BaselineCLS":
+            batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host)
+            with torch.no_grad(), no_tf32():
+                err = float((task_k.predict(batch) - task_k.predict(batch, kernels=False))
+                            .abs().max())
+            log(f"photometry classifier f32 eval logits, K2 vs plain on the same weights: "
+                f"max|d| {err:.3g} (<= 1e-4)")
+            if not err <= 1e-4:
+                raise SystemExit("the classifier's eval logits disagree between K2 and plain")
+            out[name]["eval_logit_err"] = err
+    return out
+
+
+def photometry_protocol(card: str, tmp: Path, dev, n_objects: int = 100, batch_size: int = 32,
+                        model_overrides: dict | None = None) -> dict:
+    """Phase 7c: the reference recipe through the user's entry points, on a
+    learnable ``make_corpus`` corpus that ``preprocess_data`` builds:
+    ``AppleCiderRuntime("configs/photometry.toml")`` with ``model.name =
+    "MPT"`` for 2 epochs -> ``warmstart_classifier_params`` -> the
+    classifier with ``train.freeze_params = ["trunk"]`` for 1 epoch
+    (``train(init_params=)``) -> unfrozen with plateau 0.5, accumulation 2
+    and EMA 0.99 for 2 epochs -> ``infer``."""
+    import torch
+
+    from applecider_tpu_torch.datasets.photo_dataset import PhotoEventsDataset
+    from applecider_tpu_torch.models.mpt import warmstart_classifier_params
+    from applecider_tpu_torch.preprocessing.cli import preprocess_data
+    from applecider_tpu_torch.testing import make_corpus
+    from applecider_tpu_torch.train.runtime import AppleCiderRuntime
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    raw, labels = make_corpus(tmp, n_objects=n_objects, seed=13, learnable=True, n_photometry=50,
+                              n_alerts=3)
+    out = tmp / "out"
+    preprocess_data(str(raw), str(labels), str(out), min_per_class=2, seed=42)
+    log(f"photometry protocol corpus: {n_objects} learnable objects (50 points, 3 alerts) written "
+        f"and preprocessed in {time.perf_counter() - t0:.1f} s")
+    overrides = {"data_loader": {"batch_size": batch_size},
+                 "data_set": {PhotoEventsDataset.SECTION: {
+                     "manifest_path": str(out / "manifest_train.csv"),
+                     "stats_path": str(out / "photo_stats.npz")}},
+                 **(model_overrides or {})}
+
+    def run(what: str, settings: dict, init_params=None):
+        rt = AppleCiderRuntime(REPO / "configs" / "photometry.toml", overrides,
+                               workdir=tmp / "results", device=dev)
+        for key, value in settings.items():
+            rt.set_config(key, value)
+        rt.prepare()
+        counters = zero_counters()
+        t0 = time.perf_counter()
+        res = rt.train(init_params=init_params)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _kernel_launches(counters)
+        history = res["history"]
+        steps = history[-1]["steps"]
+        val_batches = len(rt._loader(rt.datasets["validate"], shuffle=False)) * len(history)
+        log(f"{what}: {len(history)} epochs, {steps} steps of {batch_size} in {wall:.2f} s; "
+            f"train_loss {[round(r['train_loss'], 4) for r in history]}, val_loss "
+            f"{[round(r['val_loss'], 4) for r in history]} [{card}]")
+        _require_photometry_launches(launches, steps, val_batches, what, on_card)
+        if not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in history):
+            raise SystemExit(f"{what}: a loss is not finite")
+        ckpts = {t: (res["run_dir"] / "checkpoints" / f"{t}.pt") for t in ("best", "last")}
+        if not all(p.exists() for p in ckpts.values()):
+            raise SystemExit(f"{what}: best.pt or last.pt missing")
+        last = torch.load(ckpts["last"], map_location=dev, weights_only=True)
+        return rt, res, last, launches
+
+    result: dict = {"launches": {}}
+    _, mpt, mpt_last, result["launches"]["mpt"] = run(
+        "runtime train, photometry.toml with model.name = MPT (pretrain_lr 1e-3)",
+        {"model.name": "MPT", "model.BaselineCLS.pretrain_lr": 1e-3, "train.epochs": 2})
+    mpt_losses = [r["train_loss"] for r in mpt["history"]]
+    if not mpt_losses[-1] < mpt_losses[0]:
+        raise SystemExit(f"the MPT loss did not fall: {mpt_losses}")
+
+    frozen_settings = {"train.freeze_params": ["trunk"], "train.epochs": 1}
+    rt = AppleCiderRuntime(REPO / "configs" / "photometry.toml", overrides,
+                           workdir=tmp / "results", device=dev)
+    warm = warmstart_classifier_params(rt._task().module.state_dict(), mpt_last["params"])
+    _, frozen, frozen_last, result["launches"]["frozen"] = run(
+        "runtime train, classifier warm-started, trunk frozen", frozen_settings, warm)
+    moved = [n for n, v in frozen_last["params"].items()
+             if n.startswith("trunk.") and not torch.equal(v, warm[n].to(v.device))]
+    heads = [n for n, v in frozen_last["params"].items()
+             if not n.startswith("trunk.") and not torch.equal(v, warm[n].to(v.device))]
+    log(f"  trunk tensors moved in the frozen epoch: {len(moved)} (0 required); head tensors "
+        f"moved: {len(heads)}")
+    if moved or not heads:
+        raise SystemExit("the frozen epoch moved the trunk, or did not train the head")
+
+    rt, full, _, result["launches"]["unfrozen"] = run(
+        "runtime train, classifier unfrozen, plateau 0.5, accumulation 2, EMA 0.99",
+        {"train.plateau_factor": 0.5, "train.grad_accum_steps": 2, "train.ema_decay": 0.99,
+         "train.epochs": 2}, frozen_last["params"])
+    report = {k: v for k, v in full["history"][-1].items() if k.startswith("val_") or k == "lr_scale"}
+    log(f"  the last epoch's report: {json.dumps(report)}")
+    counters = zero_counters()
+    preds = rt.infer()
+    infer_batches = len(rt._loader(rt.datasets["infer"], shuffle=False))
+    result["launches"]["infer"] = _kernel_launches(counters)
+    log(f"runtime infer: predictions {preds.shape}, finite {bool(np.isfinite(preds).all())}")
+    _require_photometry_launches(result["launches"]["infer"], 0, infer_batches, "runtime infer",
+                                 on_card)
+    if preds.ndim != 2 or preds.shape[1] != 5 or not len(preds) or not np.isfinite(preds).all():
+        raise SystemExit("runtime infer did not return finite (n, 5) predictions")
+    result.update(mpt_losses=mpt_losses, report=report)
+    return result
+
+
+def check_photometry(card: str, device="cuda", model_overrides: dict | None = None,
+                     batch_size: int = 256, n_objects: int = 100) -> dict:
+    """Phase 7: the photometry model family at the published widths in bf16
+    (7a staged steps, 7c the protocol) and in f32 (7b parity). ``device``,
+    ``model_overrides`` (e.g. small widths), ``batch_size`` and
+    ``n_objects`` are for a dry run on the CPU."""
+    import tempfile
+
+    import torch
+
+    from applecider_tpu_torch.config import load_defaults
+    from applecider_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg = load_defaults().merged_with(model_overrides or {})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_photometry_") as tmp:
+        tmp = Path(tmp)
+        staged = photometry_staged_steps(card, tmp / "staged", cfg, dev, batch_size)
+        parity = photometry_parity(tmp / "parity", dev, model_overrides=model_overrides)
+        protocol = photometry_protocol(card, tmp, dev, n_objects=n_objects,
+                                       model_overrides=model_overrides)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def summed(runs):
+        return {n: sum(r[n] for r in runs) for n in runs[0]}
+
+    return {"staged": staged, "parity": parity, "protocol": protocol,
+            "staged_launches": summed([s["launches"] for s in staged.values()]),
+            "protocol_launches": summed(list(protocol["launches"].values()))}
+
+
 def main() -> int:
     import torch
 
@@ -1901,13 +2209,16 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     workflow = check_workflow(card)
+    photometry = check_photometry(card)
     for r in records:
         by_path = {"serving": serving["launches"][r["name"]],
                    "raw_serving": raw["launches"][r["name"]],
                    "training": training["launches"][r["name"]],
                    "ladder": ladder_launches[r["name"]],
                    "workflow_train": workflow["train_launches"][r["name"]],
-                   "workflow_serve": workflow["serve_launches"][r["name"]]}
+                   "workflow_serve": workflow["serve_launches"][r["name"]],
+                   "photometry_steps": photometry["staged_launches"][r["name"]],
+                   "photometry_protocol": photometry["protocol_launches"][r["name"]]}
         path = ("ladder" if r["name"].startswith(LADDER_PREFIX) else
                 "training" if r["name"] in TRAINING_KERNELS else "serving")
         r["launches"] = by_path[path]

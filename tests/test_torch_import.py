@@ -26,10 +26,13 @@ MODULES = [
     "applecider_tpu_torch.ops.losses",
     "applecider_tpu_torch.ops.conv1d",
     "applecider_tpu_torch.ops.moe",
+    "applecider_tpu_torch.ops.metrics",
     "applecider_tpu_torch.models",
     "applecider_tpu_torch.models.layers",
     "applecider_tpu_torch.models.time2vec",
+    "applecider_tpu_torch.models.base",
     "applecider_tpu_torch.models.baseline_cls",
+    "applecider_tpu_torch.models.mpt",
     "applecider_tpu_torch.models.spectranet",
     "applecider_tpu_torch.models.convnext",
     "applecider_tpu_torch.models.astrominn",
@@ -53,6 +56,7 @@ MODULES = [
     "applecider_tpu_torch.preprocessing.cli",
     "applecider_tpu_torch.utils",
     "applecider_tpu_torch.utils.weights",
+    "applecider_tpu_torch.utils.observability",
     "applecider_tpu_torch.datasets",
     "applecider_tpu_torch.datasets.loader",
     "applecider_tpu_torch.datasets.taxonomy",
@@ -139,6 +143,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         AlertStreamPipeline, FusedSpectraStream, LengthBinnedFeeder, RoutedAlertStream,
     )
     from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.baseline_cls import BaselineCLSTask
+    from applecider_tpu_torch.models.fusion import AppleCiderTask
+    from applecider_tpu_torch.models.mpt import MPTTask
     from applecider_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -169,7 +176,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         serve_alert_stream(model, iter([]))
     assert serve_alert_stream(model, iter([]), device="cpu")["n_alerts"] == 0
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Trainer(model, cfg, REPO / "build" / "unused")
+        Trainer(AppleCiderTask(cfg, model), cfg, REPO / "build" / "unused")
+    for task_cls in (BaselineCLSTask, MPTTask):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            task_cls(cfg)
+        task = task_cls(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Trainer(task, cfg, REPO / "build" / "unused")
 
 
 def test_kernel_wrappers_take_cpu_or_cuda_only():

@@ -30,6 +30,7 @@ from applecider_tpu.train.runtime import AppleCiderRuntime as JaxRuntime
 from applecider_tpu.train.trainer import Trainer as JaxTrainer
 from applecider_tpu_torch.datasets.fusion_dataset import FusionDataset
 from applecider_tpu_torch.datasets.loader import DataLoader
+from applecider_tpu_torch.datasets.photo_dataset import PhotoEventsDataset
 from applecider_tpu_torch.infer import serve as serve_mod
 from applecider_tpu_torch.infer.cli import main as serve_main
 from applecider_tpu_torch.preprocessing.cli import preprocess_data
@@ -98,7 +99,7 @@ def carried(prepared):
     shapes = jax.eval_shape(lambda k: task.init(k, _fusion_batch(2, tiny=True)),
                             jax.random.PRNGKey(0))["params"]
     rt = _runtime(prepared, prepared / "unused")
-    params = _flax_params(shapes, rt._task().state_dict())
+    params = _flax_params(shapes, rt._task().module.state_dict())
     return task, params, from_jax_params(params)
 
 
@@ -148,9 +149,9 @@ def test_predict_matches_jax(prepared, carried, tmp_path, probabilities):
     want = JaxTrainer(jtask, jcfg, tmp_path / "jax").predict(
         params, JaxDataLoader(JaxFusionDataset(jcfg), batch_size=8, shuffle=False))
     rt = _runtime(prepared, tmp_path, **extra)
-    model = rt._task()
-    model.load_state_dict(state)
-    got = Trainer(model, rt.config, tmp_path / "port", device="cpu").predict(
+    task = rt._task()
+    task.module.load_state_dict(state)
+    got = Trainer(task, rt.config, tmp_path / "port", device="cpu").predict(
         DataLoader(FusionDataset(rt.config), batch_size=3, shuffle=False))
     assert got.shape == np.asarray(want).shape == (len(FusionDataset(rt.config)), 5)
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
@@ -190,7 +191,7 @@ def test_serve_falls_back_to_dataset_stats(prepared, tmp_path, monkeypatch):
     monkeypatch.setattr(serve_mod, "serve_alert_stream", fake_serve)
     rt = _runtime(prepared, tmp_path / "results", **{f"data_set/{SEC}/stats_event_path": str(stats),
                                                      f"data_set/{SEC}/horizon": 30.0})
-    params = rt._task().state_dict()
+    params = rt._task().module.state_dict()
     rt.serve(raw_path=prepared / "raw", params=params)
     np.testing.assert_array_equal(captured["stats_mean"], np.arange(4, dtype=np.float32))
     np.testing.assert_array_equal(captured["stats_std"], np.full(4, 2.0))
@@ -232,26 +233,100 @@ def test_warmup_without_a_trained_run_warns(prepared, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,verb", [
-    ("train/freeze_params", ["trunk"], "train"),
-    ("train/grad_accum_steps", 2, "train"),
-    ("train/plateau_factor", 0.5, "train"),
-    ("train/ema_decay", 0.99, "train"),
+    ("model/name", "SpectraNet", "train"),
+    ("model/name", "AstroMiNN", "train"),
+    ("model/name", "SpectraNetTriPool", "train"),
+    ("model/name", "BTSModel", "train"),
+    ("model/name", "GalSpecNet", "train"),
     ("train/remat", True, "train"),
     ("parallel/multihost/enable", True, "train"),
     ("parallel/mesh_shape", [2, 4], "train"),
     ("serve/int8", True, "serve"),
-    ("model/name", "BaselineCLS", "train"),
     ("model/AppleCider/spectra_encoder", "tripool", "train"),
 ])
 def test_unported_options_raise(prepared, tmp_path, key, value, verb):
     rt = _runtime(prepared, tmp_path, **{key: value})
-    named = "BaselineCLS" if key == "model/name" else key.split("/")[-1]
+    named = value if key == "model/name" else key.split("/")[-1]
     with pytest.raises(NotImplementedError, match=named) as err:
         if verb == "serve":
             rt.serve(raw_path=prepared / "raw", params={})
         else:
             rt.train()
     assert "ROADMAP.md" in str(err.value)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("train/freeze_params", ["photometry_encoder"]),
+    ("train/grad_accum_steps", 2),
+    ("train/plateau_factor", 0.5),
+    ("train/ema_decay", 0.99),
+    ("model/name", "BaselineCLS"),
+])
+def test_ported_options_train(prepared, tmp_path, key, value):
+    """Each option the port now has trains through the runtime: two epochs,
+    finite losses, and its own mark on the run (frozen weights unmoved,
+    half the optimizer steps' worth of state, the plateau scale logged, the
+    EMA shadow checkpointed, the classifier's report logged)."""
+    rt = _runtime(prepared, tmp_path, **{key: value})
+    result = rt.train()
+    history = result["history"]
+    assert [r["epoch"] for r in history] == [0, 1]
+    assert all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in history)
+    last = torch.load(result["run_dir"] / "checkpoints" / "last.pt", weights_only=True)
+    init = rt._task().module.state_dict()
+    assert set(last["params"]) == set(init)
+    if key == "train/freeze_params":
+        frozen = [n for n in init if n.startswith("photometry_encoder.")]
+        assert frozen and all(torch.equal(last["params"][n], init[n]) for n in frozen)
+        assert any(not torch.equal(last["params"][n], init[n]) for n in init if n not in frozen)
+    elif key == "train/grad_accum_steps":
+        assert last["grad_accum"]["mini_step"] == last["step"] % 2
+        adam_steps = {int(s["step"]) for s in last["opt_state"]["state"].values()}
+        assert adam_steps == {last["step"] // 2}
+    elif key == "train/plateau_factor":
+        assert all(r["lr_scale"] == 1.0 for r in history)
+        assert len(last["plateau"]) == 3
+    elif key == "train/ema_decay":
+        best = torch.load(result["run_dir"] / "checkpoints" / "best.pt", weights_only=True)
+        assert set(last["ema"]) == set(init)
+        assert not all(torch.equal(last["ema"][n], last["params"][n]) for n in init)
+        assert best["params"].keys() == init.keys()
+    else:
+        assert {"val_accuracy", "val_macro_f1", "val_top3_accuracy"} <= set(history[0])
+        assert rt.infer().shape == (len(rt.datasets["infer"]), 5)
+
+
+@pytest.mark.parametrize("model", ["BaselineCLS", "MPT"])
+def test_photometry_config_trains_and_infers(prepared, tmp_path, model):
+    """``configs/photometry.toml`` as it is, and with ``model.name = "MPT"``:
+    prepare binds PhotoEventsDataset to every phase, train checkpoints,
+    infer returns the classifier's (n, 5) logits or MPT's (n, L, 5) heads;
+    serve refuses a model other than the fusion model."""
+    out = prepared / "out"
+    overrides = {
+        "model": {"name": model, "BaselineCLS": {"d_model": 16, "n_heads": 2, "n_layers": 1}},
+        "train": {"compute_dtype": "float32", "epochs": 2},
+        "data_loader": {"batch_size": BATCH, "drop_last": False},
+        "data_set": {PhotoEventsDataset.SECTION: {
+            "manifest_path": str(out / "manifest_train.csv"),
+            "stats_path": str(out / "photo_stats.npz"), "max_len": 32}},
+    }
+    rt = AppleCiderRuntime(REPO / "configs" / "photometry.toml", overrides, workdir=tmp_path,
+                           device="cpu")
+    rt.prepare()
+    assert all(isinstance(d, PhotoEventsDataset) for d in rt.datasets.values())
+    result = rt.train()
+    assert [r["epoch"] for r in result["history"]] == [0, 1]
+    assert all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
+               for r in result["history"])
+    assert (result["run_dir"] / "checkpoints" / "best.pt").exists()
+    assert ("val_accuracy" in result["history"][0]) == (model == "BaselineCLS")
+    preds = rt.infer()
+    n = len(rt.datasets["infer"])
+    assert preds.shape == ((n, 5) if model == "BaselineCLS" else (n, 32, 5))
+    assert np.isfinite(preds).all()
+    with pytest.raises(ValueError, match="fusion model"):
+        rt.serve(raw_path=prepared / "raw")
 
 
 def test_runtime_refuses_cpu_fallback(monkeypatch):

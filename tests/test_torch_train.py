@@ -26,7 +26,7 @@ from applecider_tpu.train.optim import with_grad_clip
 from applecider_tpu_torch.config import load_defaults
 from applecider_tpu_torch.datasets.loader import DataLoader
 from applecider_tpu_torch.models import build_fusion_model
-from applecider_tpu_torch.models.fusion import fusion_loss
+from applecider_tpu_torch.models.fusion import AppleCiderTask, fusion_loss
 from applecider_tpu_torch.testing import SyntheticFusionDataset
 from applecider_tpu_torch.train.trainer import Trainer
 from applecider_tpu_torch.utils.weights import from_jax_params
@@ -96,11 +96,11 @@ def _port_step(jax_step, tmp_path):
     cfg = _port_cfg(**{"model.AppleCider.criterion": jax_step["criterion"]})
     model = build_fusion_model(cfg, device="cpu")
     model.load_state_dict(from_jax_params(jax_step["params"]))
-    trainer = Trainer(model, cfg, tmp_path, device="cpu", seed=0)
-    model.eval()
+    trainer = Trainer(AppleCiderTask(cfg, model), cfg, tmp_path, device="cpu", seed=0)
     batch = trainer.to_device(jax_step["batch"])
-    trainer.optimizer.zero_grad(set_to_none=True)
-    loss, acc = trainer.loss_and_accuracy(batch)
+    model.zero_grad(set_to_none=True)
+    loss, aux = trainer.task.loss(batch, train=False)
+    acc = aux["metrics"]["accuracy"]
     loss.backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     trainer.apply_gradients()
@@ -151,7 +151,8 @@ def test_fit_writes_metrics_and_checkpoint_and_resumes(tmp_path):
     loader = DataLoader(data, batch_size=4, seed=0, drop_last=True, prefetch=1)
     model = build_fusion_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    out = Trainer(model, cfg, tmp_path, device="cpu", seed=0).fit(loader, loader, epochs=2)
+    out = Trainer(AppleCiderTask(cfg, model), cfg, tmp_path, device="cpu", seed=0).fit(
+        loader, loader, epochs=2)
     assert [r["epoch"] for r in out["history"]] == [0, 1]
     assert all(np.isfinite(r["train_loss"]) and r["steps"] == 2 * (r["epoch"] + 1)
                for r in out["history"])
@@ -162,7 +163,7 @@ def test_fit_writes_metrics_and_checkpoint_and_resumes(tmp_path):
     assert (tmp_path / "checkpoints" / "best.pt").exists()
 
     model2 = build_fusion_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
-    trainer2 = Trainer(model2, cfg, tmp_path, device="cpu", seed=0)
+    trainer2 = Trainer(AppleCiderTask(cfg, model2), cfg, tmp_path, device="cpu", seed=0)
     again = trainer2.fit(loader, epochs=3)
     assert [r["epoch"] for r in again["history"]] == [2]
     assert trainer2.step == 6
@@ -175,14 +176,13 @@ def test_train_step_draws_new_masks_each_step(tmp_path):
     the same batch and weights give different losses in two steps."""
     cfg = _port_cfg(**{"model.BaselineCLS.dropout": 0.4, "model.AppleCider.lr": 0.0})
     model = build_fusion_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(model, cfg, tmp_path, device="cpu", seed=0)
+    trainer = Trainer(AppleCiderTask(cfg, model), cfg, tmp_path, device="cpu", seed=0)
     batch = trainer.to_device(_batch())
     a = trainer.train_step(batch)
     b = trainer.train_step(batch)  # lr 0: same weights
     assert set(a) == {"loss", "accuracy", "grad_norm"}
     assert float(a["loss"]) != float(b["loss"])
-    model.eval()
     with torch.no_grad():
-        e1, _ = trainer.loss_and_accuracy(batch)
-        e2, _ = trainer.loss_and_accuracy(batch)
+        e1, _ = trainer.task.loss(batch, train=False)
+        e2, _ = trainer.task.loss(batch, train=False)
     assert float(e1) == float(e2)  # eval is deterministic

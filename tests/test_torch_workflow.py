@@ -242,17 +242,15 @@ def test_oversampler_and_taxonomy_match_jax():
 # the datasets and the single-modality tasks the port has not ported, and
 # the JAX fusion task's implementation switches
 JAX_ONLY_SECTIONS = (
-    "data_set.applecider_tpu.datasets.photo_dataset.PhotoEventsDataset",
     "data_set.applecider_tpu.datasets.image_metadata_dataset.ImageAndMetadataDataset",
     "data_set.applecider_tpu.datasets.spectra_dataset.SpectraDataset",
 )
 JAX_ONLY_KEYS = {
     "model.AppleCider.weight_decay",
-    # BaselineCLSTask, MPT pretraining, the JAX attention/remat routing
+    # the JAX attention/remat routing, the torch checkpoint import, and the
+    # weight decay the JAX classifier does not read either
     *(f"model.BaselineCLS.{k}" for k in (
-        "attention_impl", "remat", "focal_gamma", "grad_clip", "lambda_b", "lambda_dt",
-        "lambda_f", "lr", "mask_p", "mode", "pretrain_lr", "pretrained_weights_path",
-        "use_probabilities", "weight_decay")),
+        "attention_impl", "remat", "pretrained_weights_path", "weight_decay")),
     # SpectraNetTask
     *(f"model.SpectraNet.{k}" for k in (
         "class_order", "flat_dim", "head_dropout", "lr", "redshift", "use_ln_stages",
@@ -303,20 +301,35 @@ def test_load_config_matches_jax(config_file):
 
 
 def test_registry_resolves_fusion_names_and_refuses_the_rest():
+    from applecider_tpu_torch.datasets.photo_dataset import PhotoEventsDataset
+    from applecider_tpu_torch.models.baseline_cls import BaselineCLSTask
     from applecider_tpu_torch.models.fusion import build_fusion_model
+    from applecider_tpu_torch.models.mpt import MPTTask
 
     for name in ("AppleCider", "Fusion", "applecider_tpu.models.fusion.AppleCiderTask",
                  "applecider_tpu_torch.models.fusion.build_fusion_model"):
         assert registry.get_model(name) is build_fusion_model
+    for name in ("BaselineCLS", "HyraxBaselineCLS",
+                 "applecider_tpu.models.baseline_cls.BaselineCLSTask",
+                 "applecider_tpu_torch.models.baseline_cls.BaselineCLSTask"):
+        assert registry.get_model(name) is BaselineCLSTask
+    for name in ("MPT", "MPTModel", "applecider_tpu.models.mpt.MPTTask",
+                 "applecider_tpu_torch.models.mpt.MPTTask"):
+        assert registry.get_model(name) is MPTTask
     for name in ("FusionDataset", "CiDErDataset", JaxFusionDataset.SECTION,
                  "applecider_tpu_torch.datasets.fusion_dataset.FusionDataset"):
         assert registry.get_dataset_class(name) is FusionDataset
+    for name in ("PhotoEventsDataset", "applecider_tpu.datasets.photo_dataset.PhotoEventsDataset",
+                 "applecider_tpu_torch.datasets.photo_dataset.PhotoEventsDataset"):
+        assert registry.get_dataset_class(name) is PhotoEventsDataset
     cfg = load_config(REPO / "configs" / "fusion.toml")
     assert registry.builder_from_config(cfg, "infer") is FusionDataset
-    for name in ("BaselineCLS", "SpectraNet", "AstroMiNN", "MPT", "BTSModel"):
+    cfg = load_config(REPO / "configs" / "photometry.toml")
+    assert registry.builder_from_config(cfg, "train") is PhotoEventsDataset
+    for name in ("SpectraNet", "AstroMiNN", "SpectraNetTriPool", "BTSModel"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
             registry.get_model(name)
-    for name in ("PhotoEventsDataset", "ImageAndMetadataDataset", "SpectraDataset"):
+    for name in ("ImageAndMetadataDataset", "SpectraDataset"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 6"):
             registry.get_dataset_class(name)
     for name in ("applecider_tpu.models.baseline_cls.BaselineCLS", "applecider_tpu.registry.x",
@@ -324,6 +337,6 @@ def test_registry_resolves_fusion_names_and_refuses_the_rest():
         with pytest.raises(KeyError):
             registry.get_model(name)
     with pytest.raises(KeyError):
-        registry.get_dataset_class("applecider_tpu.datasets.photo_dataset.PhotoEventsDataset")
+        registry.get_dataset_class("applecider_tpu.datasets.spectra_dataset.SpectraDataset")
     with pytest.raises(KeyError, match="No dataset_class"):
         registry.builder_from_config(load_config(), "train")
