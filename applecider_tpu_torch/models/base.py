@@ -64,3 +64,14 @@ def adam(params, lr: float) -> torch.optim.Adam:
     square root (optax's eps_root 0), no weight decay; torch's Adam is the
     same update."""
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, foreach=True)
+
+
+def adamw(params, lr: float, weight_decay: float, betas=(0.9, 0.999), eps: float = 1e-8
+          ) -> torch.optim.AdamW:
+    """``optax.adamw(lr, b1, b2, eps, weight_decay)``: the decay is
+    decoupled from the moments in both (``p -= lr * (update + wd * p)`` in
+    optax, ``p *= 1 - lr * wd`` then the Adam step in torch, each reading
+    the old ``p``), on every parameter, so torch's AdamW is the same update
+    up to rounding. ``params`` may be a list of param-group dicts."""
+    return torch.optim.AdamW(params, lr=lr, betas=tuple(betas), eps=eps,
+                             weight_decay=weight_decay, foreach=True)

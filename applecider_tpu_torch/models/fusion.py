@@ -4,6 +4,11 @@
 entropy or focal loss, and accuracy), Adam at ``model.AppleCider.lr``,
 the clip ``model.AppleCider.grad_clip``, and ``to_tensor``.
 
+The spectra encoder is SpectraNet's embedding (``model.AppleCider.
+spectra_encoder = "standard"``, the default) or the TriPool variant's 256
+wide embedding (``"tripool"``, widths from ``model.SpectraNetTriPool``, the
+variant the paper's fusion model used). Both are per sample, so the
+compact spectra block of ``FusedSpectraStream`` stays exact with either.
 Each encoder's embedding is projected to ``hidden_dim`` in f32, L2
 normalised and fused by average (or concatenation, in the order
 photometry, image+metadata, spectra) before the f32 classifier.
@@ -21,7 +26,9 @@ from applecider_tpu_torch.models.astrominn import AstroMiNNModule
 from applecider_tpu_torch.models.base import Task, adam, maybe_softmax
 from applecider_tpu_torch.models.baseline_cls import BaselineCLSModule
 from applecider_tpu_torch.models.layers import Linear, init_weights
-from applecider_tpu_torch.models.spectranet import SpectraNetModule
+from applecider_tpu_torch.models.spectranet import (
+    SPECTRUM_BINS, SpectraNetModule, SpectraNetTriPoolModule, build_tripool,
+)
 from applecider_tpu_torch.ops.losses import cross_entropy, focal_loss
 from applecider_tpu_torch.registry import register_model
 
@@ -33,7 +40,8 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 class AppleCiderModule(nn.Module):
-    def __init__(self, photometry_encoder: BaselineCLSModule, spectra_encoder: SpectraNetModule,
+    def __init__(self, photometry_encoder: BaselineCLSModule,
+                 spectra_encoder: SpectraNetModule | SpectraNetTriPoolModule,
                  img_meta_encoder: AstroMiNNModule, photometry_dim: int, spectra_dim: int,
                  img_meta_dim: int, hidden_dim: int = 5, fusion: str = "avg",
                  num_classes: int = 5):
@@ -99,15 +107,15 @@ def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dt
     sc = cfg["model"]["SpectraNet"]
     ac = cfg["model"]["AstroMiNN"]
     fc = cfg["model"]["AppleCider"]
-    if str(fc.get("spectra_encoder", "standard")) != "standard":
-        raise NotImplementedError(
-            f"model.AppleCider.spectra_encoder = {fc['spectra_encoder']!r} is not ported yet "
-            "(ROADMAP.md Queue A item 6, the TriPool encoder)")
     photometry = BaselineCLSModule(int(pc["d_model"]), int(pc["n_heads"]), int(pc["n_layers"]),
                                    float(pc["dropout"]), dtype=dt)
-    spectra = SpectraNetModule(
-        channels=tuple(sc["channels"]), depths=tuple(sc["depths"]),
-        kernel_sizes_per_stage=tuple(tuple(k) for k in sc["kernel_sizes_per_stage"]), dtype=dt)
+    if str(fc.get("spectra_encoder", "standard")) == "tripool":
+        spectra = build_tripool(cfg, classification=False, length=SPECTRUM_BINS, dtype=dt)
+    else:
+        spectra = SpectraNetModule(
+            channels=tuple(sc["channels"]), depths=tuple(sc["depths"]),
+            kernel_sizes_per_stage=tuple(tuple(k) for k in sc["kernel_sizes_per_stage"]),
+            embedding=True, dtype=dt)
     moe_out = int(ac["moe_output_dims"])
     img_meta = AstroMiNNModule(
         num_experts=int(ac["num_mlp_experts"]), towers_hidden_dims=int(ac["towers_hidden_dims"]),
@@ -117,7 +125,7 @@ def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dt
         dtype=dt)
     model = AppleCiderModule(
         photometry, spectra, img_meta, photometry_dim=int(pc["d_model"]),
-        spectra_dim=spectra.head_fc1.out_features,
+        spectra_dim=spectra.embedding_dim,
         img_meta_dim=moe_out, hidden_dim=int(fc["hidden_dim"]), fusion=str(fc["fusion"]),
         num_classes=int(fc["num_classes"]))
     init_weights(model, generator)

@@ -27,7 +27,7 @@ from torch import nn
 
 from applecider_tpu_torch.config import Config
 from applecider_tpu_torch.device import resolve_device
-from applecider_tpu_torch.models.base import Task
+from applecider_tpu_torch.models.base import Task, adamw
 from applecider_tpu_torch.models.baseline_cls import BaselineCLSEncoder, BaselineCLSTask
 from applecider_tpu_torch.models.layers import Linear, init_weights
 from applecider_tpu_torch.ops.dropout import DropoutRNG
@@ -153,8 +153,7 @@ class MPTTask(Task):
         return torch.cat([f_hat[..., None], b_hat, dt_hat[..., None]], dim=-1)
 
     def make_optimizer(self, params):
-        return torch.optim.AdamW(params, lr=float(self.mc.get("pretrain_lr", 1e-4)),
-                                 betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01, foreach=True)
+        return adamw(params, float(self.mc.get("pretrain_lr", 1e-4)), 0.01)
 
     to_tensor = staticmethod(BaselineCLSTask.to_tensor)
 

@@ -1,7 +1,7 @@
-"""1-D convolution and pooling for SpectraNet.
+"""1-D convolution and pooling for SpectraNet and its TriPool variant.
 
-Counterpart of the direct path and ``max_pool1d`` of
-``applecider_tpu/ops/conv1d.py``. The JAX package leaves this convolution
+Counterpart of the direct path and the three pools (``max_pool1d``,
+``avg_pool1d``, ``min_pool1d``) of ``applecider_tpu/ops/conv1d.py``. The JAX package leaves this convolution
 to XLA outside any Pallas kernel, so here it is cuDNN's through
 ``torch.nn.functional.conv1d``. The FFT and space-to-depth routes of the
 JAX package are TPU/CPU routing choices and are not ported.
@@ -42,3 +42,17 @@ def max_pool1d(x: torch.Tensor, window: int) -> torch.Tensor:
     B, L, C = x.shape
     n = L // window
     return x[:, : n * window].reshape(B, n, window, C).amax(dim=2)
+
+
+def avg_pool1d(x: torch.Tensor, window: int) -> torch.Tensor:
+    """torch AvgPool1d(window) semantics over L of (B, L, C): the window's
+    sum divided by the window, in x's dtype, the ragged tail dropped."""
+    B, L, C = x.shape
+    n = L // window
+    return x[:, : n * window].reshape(B, n, window, C).sum(dim=2) / window
+
+
+def min_pool1d(x: torch.Tensor, window: int) -> torch.Tensor:
+    """The TriPool's min pool, ``-max_pool1d(-x)``, as the JAX package
+    computes it."""
+    return -max_pool1d(-x, window)

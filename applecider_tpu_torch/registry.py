@@ -6,21 +6,22 @@ so run configs select them either way. The port registers what it has:
 * ``"AppleCider"`` and ``"Fusion"``: ``models.fusion.build_fusion_model``,
   the factory of the port's ``AppleCiderModule`` (``factory(cfg, device=,
   generator=)``), which ``AppleCiderTask`` wraps for training;
-* ``"BaselineCLS"`` and ``"HyraxBaselineCLS"``: ``models.baseline_cls.
-  BaselineCLSTask``; ``"MPT"`` and ``"MPTModel"``: ``models.mpt.MPTTask``
-  (tasks, built the same way);
-* ``"FusionDataset"`` and ``"CiDErDataset"``: ``datasets.fusion_dataset``;
-  ``"PhotoEventsDataset"``: ``datasets.photo_dataset``.
+* tasks, built the same way: ``"BaselineCLS"`` and ``"HyraxBaselineCLS"``
+  (``models.baseline_cls.BaselineCLSTask``), ``"MPT"`` and ``"MPTModel"``
+  (``models.mpt.MPTTask``), ``"SpectraNet"`` and ``"SpectraNetTriPool"``
+  (``models.spectranet``), ``"AstroMiNN"`` (``models.astrominn``);
+* datasets: ``"FusionDataset"`` and ``"CiDErDataset"``,
+  ``"PhotoEventsDataset"``, ``"SpectraDataset"`` and ``"SpectraData"``,
+  ``"ImageAndMetadataDataset"``, ``"LogitSequenceDataset"``.
 
 The JAX package's dotted names of these (``applecider_tpu.models.fusion.
-AppleCiderTask``, ``applecider_tpu.models.baseline_cls.BaselineCLSTask``,
-``applecider_tpu.models.mpt.MPTTask``, ``applecider_tpu.datasets.
-fusion_dataset.FusionDataset``, ``applecider_tpu.datasets.photo_dataset.
-PhotoEventsDataset``) map to them, so the same run TOML drives both
-packages. Any other dotted name under ``applecider_tpu.`` raises
-``KeyError``: the port never imports the JAX package. A short name the JAX
-package registers but the port has not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+AppleCiderTask``, ``applecider_tpu.models.spectranet.SpectraNetTask``,
+``applecider_tpu.datasets.spectra_dataset.SpectraDataset``, ...) map to
+them, so the same run TOML drives both packages. Any other dotted name
+under ``applecider_tpu.`` raises ``KeyError``: the port never imports the
+JAX package. A short name the JAX package registers but the port has not
+ported yet (the model zoo's) raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,22 +34,20 @@ _DATASET_REGISTRY: dict[str, Any] = {}
 
 # the port's modules that register entries, imported on a registry miss
 _MODEL_MODULES = ["applecider_tpu_torch.models.fusion", "applecider_tpu_torch.models.baseline_cls",
-                  "applecider_tpu_torch.models.mpt"]
+                  "applecider_tpu_torch.models.mpt", "applecider_tpu_torch.models.spectranet",
+                  "applecider_tpu_torch.models.astrominn"]
 _DATASET_MODULES = ["applecider_tpu_torch.datasets.fusion_dataset",
-                    "applecider_tpu_torch.datasets.photo_dataset"]
+                    "applecider_tpu_torch.datasets.photo_dataset",
+                    "applecider_tpu_torch.datasets.spectra_dataset",
+                    "applecider_tpu_torch.datasets.image_metadata_dataset",
+                    "applecider_tpu_torch.datasets.logit_sequence_dataset"]
 
-_TASKS = "ROADMAP.md Queue A item 6 (single-modality tasks)"
 _UNPORTED_MODELS = {
-    "SpectraNet": _TASKS, "SpectraNetTriPool": _TASKS, "AstroMiNN": _TASKS,
-    **{name: "ROADMAP.md Queue A item 7 (models/zoo.py)" for name in (
+    name: "ROADMAP.md Queue A item 7 (models/zoo.py)" for name in (
         "BTSModel", "GalSpecNet", "MetaModel", "Informer", "SpectraViT",
-        "SpectraEfficientNetV2", "SpectraConvNeXt")},
+        "SpectraEfficientNetV2", "SpectraConvNeXt")
 }
-_UNPORTED_DATASETS = {
-    name: "ROADMAP.md Queue A item 6 (single-modality datasets)" for name in (
-        "ImageAndMetadataDataset", "SpectraDataset", "SpectraData",
-        "LogitSequenceDataset")
-}
+_UNPORTED_DATASETS: dict[str, str] = {}
 
 
 def _register(registry: dict, obj: Any, name: str | None) -> Any:

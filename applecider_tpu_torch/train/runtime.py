@@ -4,9 +4,15 @@
 * The task and the per-phase datasets come from the TOML config
   (``model.name``; ``[model_inputs.<phase>.data]`` with ``dataset_class``
   and ``data_location``) through the port's registry; ``set_config``
-  changes a key. ``train`` and ``infer`` run any registered task (the
-  fusion model, ``BaselineCLS``, ``MPT``); ``serve`` and ``warmup`` run the
-  fusion model and refuse another.
+  changes a key. ``train`` and ``infer`` run any registered task, so
+  every run config of ``configs/`` trains and infers: the fusion model
+  (``fusion.toml``, with either spectra encoder), ``BaselineCLS`` and
+  ``MPT`` (``photometry.toml``), ``SpectraNet`` (``spectra.toml``; with
+  ``model.SpectraNet.redshift`` the redshift regressor; ``model.name =
+  "SpectraNetTriPool"`` the TriPool classifier on the same data) and
+  ``AstroMiNN`` (``astrominn.toml``, on the samples that
+  ``preprocessing.alert_samples.build_alert_samples`` writes). ``serve``
+  and ``warmup`` run the fusion model and refuse another.
 * Each verb writes into a timestamped run directory under ``workdir``;
   ``infer`` and ``serve`` load the weights of the most recent trained run
   (``checkpoints/best.pt``, else ``last.pt``), built from the config alone:

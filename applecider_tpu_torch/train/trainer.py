@@ -180,12 +180,13 @@ class Trainer:
         return self.workdir / "checkpoints" / f"{tag}.pt"
 
     def save_checkpoint(self, epoch: int, tag: str = "last", params=None) -> None:
-        """``params`` (a state_dict) is stored as the weights in place of the
-        model's: the best checkpoint holds the EMA shadow it was validated
-        on."""
+        """``params`` (parameters by name) are stored in place of the model's
+        parameters: the best checkpoint holds the EMA shadow it was
+        validated on, beside the model's buffers (TriPool's frozen
+        BatchNorm statistics)."""
         path = self._ckpt_path(tag)
         path.parent.mkdir(parents=True, exist_ok=True)
-        state = {"params": self.model.state_dict() if params is None else params,
+        state = {"params": {**self.model.state_dict(), **(params or {})},
                  "opt_state": self.optimizer.state_dict(), "step": self.step,
                  "epoch": int(epoch)}
         if self.ema is not None and self.ema.shadow is not None:

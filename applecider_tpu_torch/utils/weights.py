@@ -10,6 +10,13 @@ and each leaf changes layout by its kind:
 * LayerNorm ``scale`` -> ``weight``;
 * everything else (``bias``, ``cls_tok``, ``gamma``, Time2Vec's ``w0``,
   ``b0``, ``w``, ``b``) as it is.
+
+TriPool's ``head_fc1`` kernel (C * L, 2048) is laid out channel-major,
+because both packages flatten the last stage's (B, L, C) activations as
+(B, C, L); it transposes like any Linear. Its frozen BatchNorm keeps
+``scale`` and ``bias`` in flax ``params`` (mapped as above) and its running
+statistics in the ``batch_stats`` collection: ``mean`` becomes the
+buffer ``running_mean`` and ``var`` ``running_var``.
 """
 
 from __future__ import annotations
@@ -22,18 +29,25 @@ import torch
 _KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
 
 
-def from_jax_params(params: Mapping) -> dict[str, torch.Tensor]:
-    """A ``state_dict`` for the port's model from flax ``params``."""
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def from_jax_params(params: Mapping, batch_stats: Mapping | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """A ``state_dict`` for the port's model from flax ``params`` and, for a
+    model with frozen BatchNorm, its ``batch_stats``."""
     out: dict[str, torch.Tensor] = {}
 
-    def walk(node: Mapping, prefix: tuple[str, ...]) -> None:
+    def walk(node: Mapping, prefix: tuple[str, ...], stats: bool = False) -> None:
         for key, value in node.items():
             if isinstance(value, Mapping):
-                walk(value, (*prefix, key))
+                walk(value, (*prefix, key), stats)
                 continue
             arr = np.asarray(value, np.float32)
             name = key
-            if key == "kernel":
+            if stats:
+                name = _STATS[key]
+            elif key == "kernel":
                 arr = arr.transpose(_KERNEL_AXES[arr.ndim])
                 name = "weight"
             elif key == "scale":
@@ -41,4 +55,5 @@ def from_jax_params(params: Mapping) -> dict[str, torch.Tensor]:
             out[".".join((*prefix, name))] = torch.from_numpy(np.array(arr, order="C"))
 
     walk(params, ())
+    walk(batch_stats or {}, (), stats=True)
     return out

@@ -101,7 +101,28 @@ Phases, in order; any failure exits non-zero before the result line:
    unmoved, K4's backward still 4 a step) -> unfrozen with plateau 0.5,
    accumulation 2 and EMA 0.99 for 2 epochs (``best.pt``, ``last.pt``) ->
    ``infer`` (finite (n, 5)), K2 4 a validation or inference batch;
-8. one JSON line describing each kernel, then the result line.
+8. the spectra and image+metadata families at the published widths: (a)
+   five staged bf16 steps each, timed with CUDA events (ms, samples/s,
+   peak GiB), of the SpectraNet classifier and redshift regressor (B = 32
+   from ``configs/spectra.toml``, L = 3,481; K3f and K3b 5 a step, nothing
+   else), of the TriPool classifier (B = 32) and of AstroMiNN (B = 64
+   from ``configs/astrominn.toml``), the last two launching no port
+   kernel; (b) in f32 (TF32 off, dropout live, the same weights and
+   draws) one SpectraNet step on the kernel path against the plain path
+   within phase 5's limits and its eval logits within 1e-4, and one
+   TriPool step (with the reference's frozen BatchNorm stages) and one
+   AstroMiNN step each run twice, equal bit for bit, the BatchNorm
+   statistics unmoved; (c) through the entry points:
+   ``AppleCiderRuntime("configs/spectra.toml")`` on a learnable table of
+   256 spectra for 2 epochs (the loss falls) and as the redshift regressor
+   for 1, each then ``infer``; a ``make_corpus`` corpus of 64 learnable
+   objects through ``preprocess_data`` and ``build_alert_samples`` (6
+   alerts an object at most) into ``configs/astrominn.toml`` for 2
+   oversampled epochs and ``infer``; ``configs/fusion.toml`` with the
+   TriPool spectra encoder on that corpus for 1 epoch, then ``serve``
+   (K1 and K2 launched, no K3f) within 1e-6 of ``serve_alert_stream`` on
+   ``best.pt``;
+9. one JSON line describing each kernel, then the result line.
 
 It imports nothing of JAX.
 """
@@ -1908,18 +1929,24 @@ def check_workflow(card: str, n_objects: int = 96, epochs: int = 3, batch_size: 
 PHOTOMETRY_STEP_KERNELS = {"flash_attention_fwd": 4, "flash_attention_bwd": 4}
 
 
+def _require_launches(launches: dict, want: dict, what: str, on_card: bool) -> None:
+    """Exactly ``want``'s launches of each kernel it names, none of any
+    other; the counts are logged on any device and held on the card."""
+    wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    stray = [n for n in launches if n not in want and launches[n]]
+    log(f"  launches in {what}: { {n: v for n, v in launches.items() if v} }")
+    if on_card and (wrong or stray):
+        raise SystemExit(f"{what} launches (got, expected): {wrong}; stray {stray}")
+
+
 def _require_photometry_launches(launches: dict, steps: int, eval_batches: int, what: str,
                                  on_card: bool) -> None:
     """K4 forward and backward 4 a step, K2 4 an evaluation batch, no other
     kernel."""
     want = {n: per * steps for n, per in PHOTOMETRY_STEP_KERNELS.items()}
     want["masked_attention"] = EVAL_KERNELS["masked_attention"] * eval_batches
-    wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
-    stray = [n for n in launches if n not in want and launches[n]]
-    log(f"  launches in {what} ({steps} steps, {eval_batches} evaluation batches): "
-        f"{ {n: v for n, v in launches.items() if v} }")
-    if on_card and (wrong or stray):
-        raise SystemExit(f"{what} launches (got, expected): {wrong}; stray {stray}")
+    _require_launches(launches, want, f"{what} ({steps} steps, {eval_batches} evaluation batches)",
+                      on_card)
 
 
 def _photometry_tasks():
@@ -1940,11 +1967,55 @@ def _photometry_batches(n_batches: int, batch_size: int, seed: int) -> list:
             for s in range(0, n_batches * batch_size, batch_size)]
 
 
+def _staged_steps(trainer, batches: list, steps: int, on_card: bool) -> dict:
+    """``steps`` train steps over ``batches`` (already on the device), in
+    turn, after one step of first launches: each timed with CUDA events
+    (the host clock on the CPU); the launches of the timed steps alone;
+    the peak device memory over them."""
+    import torch
+
+    trainer.train_step(batches[0])
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        m = trainer.train_step(batches[i % len(batches)])
+        if on_card:
+            ev[1].record()
+            times.append(ev)
+        else:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    if on_card:
+        torch.cuda.synchronize()
+        times = [a.elapsed_time(b) for a, b in times]
+    launches = _kernel_launches(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    losses = [float(x) for x in losses]
+    med = float(np.median(times))
+    batch_size = len(batches[0][0])
+    return {"step_ms": times, "median_ms": med, "samples_per_s": batch_size / med * 1e3,
+            "peak_gib": peak, "launches": launches, "losses": losses, "batch": batch_size}
+
+
+def _log_staged(what: str, r: dict, card: str) -> None:
+    log(f"{what}, batch {r['batch']}, staged: ms {', '.join(f'{t:.3f}' for t in r['step_ms'])}; "
+        f"median {r['median_ms']:.3f} ms, {r['samples_per_s']:.1f} samples/s; peak memory "
+        f"{r['peak_gib']:.2f} GiB; losses {[round(x, 4) for x in r['losses']]} [{card}]")
+    if not all(np.isfinite(r["losses"])):
+        raise SystemExit(f"{what}: a loss is not finite")
+
+
 def photometry_staged_steps(card: str, workdir: Path, cfg, dev, batch_size: int = 256,
                             steps: int = 5) -> dict:
     """Phase 7a: ``steps`` MPT and classifier steps on batches already on the
-    card, each after one step of first launches, timed with CUDA events
-    (host clock on the CPU); launches read from the timed steps alone."""
+    card (``_staged_steps``)."""
     import torch
 
     from applecider_tpu_torch.train.trainer import Trainer
@@ -1955,44 +2026,13 @@ def photometry_staged_steps(card: str, workdir: Path, cfg, dev, batch_size: int 
     for name, cls in _photometry_tasks():
         task = cls(cfg, device=dev, generator=torch.Generator().manual_seed(0))
         trainer = Trainer(task, cfg, workdir / name, device=dev)
-        batches = [trainer.to_device(h) for h in hosts]
-        trainer.train_step(batches[0])
-        if on_card:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        counters = zero_counters()
-        times, losses = [], []
-        for i in range(steps):
-            t0 = time.perf_counter()
-            if on_card:
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record()
-            m = trainer.train_step(batches[i % 2])
-            if on_card:
-                ev[1].record()
-                times.append(ev)
-            else:
-                times.append((time.perf_counter() - t0) * 1e3)
-            losses.append(m["loss"])
-        if on_card:
-            torch.cuda.synchronize()
-            times = [a.elapsed_time(b) for a, b in times]
-        launches = _kernel_launches(counters)
-        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
-        losses = [float(x) for x in losses]
-        med = float(np.median(times))
-        log(f"photometry {name} steps, {cfg.get_path('train.compute_dtype')}, d_model "
-            f"{cfg.get_path('model.BaselineCLS.d_model')} x {cfg.get_path('model.BaselineCLS.n_layers')} "
-            f"layers, batch {batch_size}, staged: "
-            f"ms {', '.join(f'{t:.3f}' for t in times)}; median {med:.3f} ms, "
-            f"{batch_size / med * 1e3:.1f} samples/s; peak memory {peak:.2f} GiB; losses "
-            f"{[round(x, 4) for x in losses]} [{card}]")
-        if not all(np.isfinite(losses)):
-            raise SystemExit(f"photometry {name} steps: loss not finite")
-        _require_photometry_launches(launches, steps, 0, f"the {name} steps", on_card)
-        out[name] = {"step_ms": times, "median_ms": med, "samples_per_s": batch_size / med * 1e3,
-                     "peak_gib": peak, "launches": launches}
-        del trainer, task, batches
+        r = _staged_steps(trainer, [trainer.to_device(h) for h in hosts], steps, on_card)
+        _log_staged(f"photometry {name} steps, {cfg.get_path('train.compute_dtype')}, d_model "
+                    f"{cfg.get_path('model.BaselineCLS.d_model')} x "
+                    f"{cfg.get_path('model.BaselineCLS.n_layers')} layers", r, card)
+        _require_photometry_launches(r["launches"], steps, 0, f"the {name} steps", on_card)
+        out[name] = r
+        del trainer, task
     return out
 
 
@@ -2194,6 +2234,412 @@ def check_photometry(card: str, device="cuda", model_overrides: dict | None = No
             "protocol_launches": summed(list(protocol["launches"].values()))}
 
 
+# ------------------------------------------------------------- phase 8
+# launches per SpectraNet step: K3 forward and backward in each of its 5
+# blocks, nothing else; per inference batch (no autograd): K3f 5. TriPool
+# and AstroMiNN launch no port kernel.
+SPECTRA_STEP_KERNELS = {"ln_gelu_fwd": 5, "ln_gelu_bwd": 5}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (its default weight gradients sum
+    with atomics in any order), for a step that must repeat bit for bit."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _spectra_batch(rng, batch_size: int, length: int = 3481) -> tuple:
+    """``SpectraNetTask.to_tensor`` arrays: N(0, 1) flux, labels in [0, 9),
+    redshifts U(0, 0.3)."""
+    return (rng.normal(size=(batch_size, length)).astype(np.float32),
+            rng.integers(0, 9, size=batch_size).astype(np.int64),
+            rng.uniform(0.0, 0.3, size=batch_size).astype(np.float32))
+
+
+def _astrominn_batch(rng, batch_size: int) -> tuple:
+    """``AstroMiNNTask.to_tensor`` arrays: metadata (B, 24), NHWC 63 x 63
+    cutouts, one-hot targets of 5 classes."""
+    return (rng.normal(size=(batch_size, 24)).astype(np.float32),
+            rng.normal(size=(batch_size, 63, 63, 3)).astype(np.float32),
+            np.eye(5, dtype=np.float32)[rng.integers(0, 5, size=batch_size)])
+
+
+def _single_tasks(cfgs: dict) -> list:
+    """(what, task class, config, host batches, launches a step) of phase
+    8a's runs."""
+    from applecider_tpu_torch.models.astrominn import AstroMiNNTask
+    from applecider_tpu_torch.models.spectranet import SpectraNetTask, SpectraNetTriPoolTask
+
+    rng = np.random.default_rng(21)
+    sb = int(cfgs["spectra"].get_path("data_loader.batch_size"))
+    ab = int(cfgs["astrominn"].get_path("data_loader.batch_size"))
+    spectra = [_spectra_batch(rng, sb) for _ in range(2)]
+    redshift = cfgs["spectra"].merged_with({"model": {"SpectraNet": {"redshift": True}}})
+    return [("SpectraNet classifier", SpectraNetTask, cfgs["spectra"], spectra,
+             SPECTRA_STEP_KERNELS),
+            ("SpectraNet redshift", SpectraNetTask, redshift, spectra, SPECTRA_STEP_KERNELS),
+            ("SpectraNetTriPool", SpectraNetTriPoolTask, cfgs["spectra"], spectra, {}),
+            ("AstroMiNN", AstroMiNNTask, cfgs["astrominn"],
+             [_astrominn_batch(rng, ab) for _ in range(2)], {})]
+
+
+def single_staged_steps(card: str, workdir: Path, cfgs: dict, dev, steps: int = 5) -> dict:
+    """Phase 8a: ``steps`` staged bf16 steps of each single-modality task at
+    its config's batch (``_staged_steps``)."""
+    import torch
+
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    on_card = dev.type == "cuda"
+    out = {}
+    for what, cls, cfg, hosts, per_step in _single_tasks(cfgs):
+        task = cls(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(task, cfg, workdir / what.replace(" ", "_"), device=dev)
+        r = _staged_steps(trainer, [trainer.to_device(h) for h in hosts], steps, on_card)
+        n_params = sum(p.numel() for p in task.module.parameters())
+        _log_staged(f"{what} steps, {cfg.get_path('train.compute_dtype')}, {n_params:,} "
+                    f"parameters", r, card)
+        _require_launches(r["launches"], {n: k * steps for n, k in per_step.items()},
+                          f"the {what} steps ({steps})", on_card)
+        out[what] = r
+        del trainer, task
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _perturb_batchnorm(module, seed: int) -> None:
+    """Frozen BatchNorm statistics off their init (mean 0, var 1)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, b in module.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.2 * torch.randn(b.shape, generator=g))
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=g) + 0.5)
+
+
+def single_parity(workdir: Path, cfgs: dict, dev, batch_size: int = 32) -> dict:
+    """Phase 8b, f32, TF32 off, dropout live, the same weights and draws
+    (``Trainer(seed=11)``): one SpectraNet step on the kernel path against
+    the plain path within phase 5's limits (|dloss| <= 1e-5; the stages,
+    behind max pools, ||dg|| <= 5e-2 ||g||; the head's gradients within
+    1e-4 * max(1, max|g|); parameters within 1e-6 where |g| >= max(1e-5,
+    tol), and every one within 2 * lr + 1e-7), then its eval logits
+    (<= 1e-4); one TriPool step (the reference's BatchNorm stages, their
+    statistics perturbed) and one AstroMiNN step, which have no kernel,
+    each run twice and equal bit for bit (cuDNN deterministic), the
+    BatchNorm statistics unchanged."""
+    import torch
+
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(22)
+    out = {}
+    runs = _single_tasks({k: c.merged_with({"train": {"compute_dtype": "float32"}})
+                          for k, c in cfgs.items()})
+    for what, cls, cfg, _, _ in (r for r in runs if r[0] != "SpectraNet redshift"):
+        if what == "SpectraNetTriPool":
+            cfg = cfg.merged_with({"model": {"SpectraNetTriPool": {
+                "use_ln_stages": [False, False, False, False, True]}}})
+        host = (_astrominn_batch(rng, batch_size) if what == "AstroMiNN"
+                else _spectra_batch(rng, batch_size))
+        task_a = cls(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        _perturb_batchnorm(task_a.module, 1)
+        task_b = copy.deepcopy(task_a)
+        stats = {n: b.clone() for n, b in task_a.module.named_buffers() if "running" in n}
+        kernels = what.startswith("SpectraNet ")
+        steps = {}
+        for path, task in (("a", task_a), ("b", task_b)):
+            trainer = Trainer(task, cfg, workdir / f"{what.replace(' ', '_')}_{path}", device=dev,
+                              seed=11)
+            with no_tf32(), deterministic_cudnn():
+                m = trainer.train_step(trainer.to_device(host),
+                                       kernels=not (kernels and path == "b"))
+            lr = trainer.optimizer.param_groups[0]["lr"]
+            steps[path] = (float(m["loss"]), {n: p.grad.detach().clone()
+                                              for n, p in task.module.named_parameters()})
+        (la, ga), (lb, gb) = steps["a"], steps["b"]
+        moved = [n for n, b in task_a.module.named_buffers() if n in stats
+                 and not torch.equal(stats[n], b)]
+        pa = dict(task_a.module.named_parameters())
+        pb = dict(task_b.module.named_parameters())
+        if not kernels:
+            same = la == lb and all(torch.equal(ga[n], gb[n]) and torch.equal(pa[n], pb[n])
+                                    for n in pa)
+            log(f"{what} f32 step (TF32 off, dropout live, batch {batch_size}) run twice: loss "
+                f"{la:.7f} and {lb:.7f}; loss, gradients and parameters bit for bit: {same}; "
+                f"BatchNorm statistics {len(stats)}, moved {moved}")
+            if not same or moved:
+                raise SystemExit(f"the {what} step is not deterministic, or it moved its "
+                                 "frozen BatchNorm statistics")
+            out[what] = {"bitwise": same, "frozen_stats": len(stats)}
+            continue
+        ok = abs(la - lb) <= 1e-5
+        g_err, s_err, p_err, worst = 0.0, 0.0, 0.0, ""
+        for n in pa:
+            dp = (pa[n].detach() - pb[n].detach()).abs()
+            ok = ok and bool((dp <= 2 * lr + 1e-7).all())
+            if n.startswith("stage"):
+                rel = float((ga[n] - gb[n]).norm()) / max(float(gb[n].norm()), 1e-12)
+                s_err = max(s_err, rel)
+                ok = ok and rel <= 5e-2
+                continue
+            d = (ga[n] - gb[n]).abs().max().item()
+            lim = 1e-4 * max(1.0, gb[n].abs().max().item())
+            if d / lim > g_err:
+                g_err, worst = d / lim, n
+            big = gb[n].abs() >= max(1e-5, lim)
+            p_err = max(p_err, float(dp[big].max()) if big.any() else 0.0)
+            ok = ok and d <= lim and bool((dp[big] <= 1e-6).all())
+        batch = tuple(torch.from_numpy(a).to(dev) for a in host)
+        with torch.no_grad(), no_tf32():
+            logit_err = float((task_a.predict(batch) - task_a.predict(batch, kernels=False))
+                              .abs().max())
+        ok = ok and logit_err <= 1e-4
+        log(f"{what} f32 step (TF32 off, dropout live, batch {batch_size}), kernel vs plain: "
+            f"loss {la:.7f} vs {lb:.7f} (|d| {abs(la - lb):.3g} <= 1e-5); stages ||dg||/||g|| "
+            f"{s_err:.3g} (<= 5e-2); head gradient at {g_err:.3g} of its bound ({worst}); "
+            f"post-step params max|d| where |g| >= max(1e-5, tol) {p_err:.3g} (<= 1e-6); eval "
+            f"logits, K3f vs plain, max|d| {logit_err:.3g} (<= 1e-4) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the f32 {what} step or logits disagree between the kernel and "
+                             "plain paths")
+        out[what] = {"loss_err": abs(la - lb), "stage_rel_grad_err": s_err,
+                     "grad_err_of_bound": g_err, "param_err": p_err, "eval_logit_err": logit_err}
+    return out
+
+
+def write_spectra_table(path: Path, n: int, seed: int, length: int = 3481) -> Path:
+    """A learnable ``SpectraDataset`` table: N(0, 0.5) flux (B, 1, L) with a
+    Gaussian line whose height (1 + c / 2) and place are set by the class
+    c, each of the 9 labels as named in ``LABEL_STRINGS``, redshifts
+    U(0, 0.3)."""
+    from applecider_tpu_torch.datasets.spectra_dataset import LABEL_STRINGS
+
+    rng = np.random.default_rng(seed)
+    names = list(LABEL_STRINGS)
+    cls = rng.integers(0, len(names), size=n)
+    bins = np.arange(length)
+    centre = (cls + 1) * length / (len(names) + 1)
+    flux = rng.normal(0.0, 0.5, size=(n, 1, length))
+    line = np.exp(-0.5 * ((bins[None, :] - centre[:, None]) / 20.0) ** 2)  # 20 bins wide
+    flux[:, 0] += (1.0 + cls[:, None] / 2.0) * line
+    np.savez(path, flux=flux.astype(np.float32),
+             labels=np.asarray([names[c] for c in cls], dtype=object),
+             redshifts=rng.uniform(0.0, 0.3, size=n).astype(np.float32),
+             file_paths=np.asarray([f"spec_{i}.fits" for i in range(n)], dtype=object))
+    return path
+
+
+def _runtime_train(what: str, config: str, overrides: dict, workdir: Path, dev, card: str,
+                   settings: dict | None = None):
+    """``AppleCiderRuntime(configs/<config>)`` with ``settings`` set:
+    ``prepare`` and ``train``; returns (runtime, result, the training's
+    launches)."""
+    import torch
+
+    from applecider_tpu_torch.train.runtime import AppleCiderRuntime
+
+    rt = AppleCiderRuntime(REPO / "configs" / config, overrides, workdir=workdir, device=dev)
+    for key, value in (settings or {}).items():
+        rt.set_config(key, value)
+    rt.prepare()
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    res = rt.train()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernel_launches(counters)
+    history = res["history"]
+    log(f"{what}: {len(history)} epochs, {history[-1]['steps']} steps of "
+        f"{rt.config.get_path('data_loader.batch_size')} in {wall:.2f} s; train_loss "
+        f"{[round(r['train_loss'], 4) for r in history]} [{card}]")
+    if not all(np.isfinite(r["train_loss"]) for r in history):
+        raise SystemExit(f"{what}: a loss is not finite")
+    return rt, res, launches
+
+
+def _runtime_infer(what: str, rt, shape_tail: tuple, want_per_batch: dict, on_card: bool):
+    """``rt.infer()``: finite predictions of (n, *shape_tail) and exactly
+    ``want_per_batch`` launches an inference batch; returns the launches."""
+    counters = zero_counters()
+    preds = rt.infer()
+    launches = _kernel_launches(counters)
+    batches = len(rt._loader(rt.datasets["infer"], shuffle=False))
+    log(f"{what} infer: predictions {preds.shape}, finite {bool(np.isfinite(preds).all())}")
+    _require_launches(launches, {n: k * batches for n, k in want_per_batch.items()},
+                      f"{what} infer ({batches} batches)", on_card)
+    if preds.shape[1:] != shape_tail or not len(preds) or not np.isfinite(preds).all():
+        raise SystemExit(f"{what} infer did not return finite (n, *{shape_tail}) predictions")
+    return launches
+
+
+def single_protocol(card: str, tmp: Path, dev, n_spectra: int = 256, n_objects: int = 64,
+                    model_overrides: dict | None = None) -> dict:
+    """Phase 8c, through the user's entry points: ``configs/spectra.toml``
+    on a learnable table (2 epochs, the loss falls; again as the redshift
+    regressor for 1 epoch), ``configs/astrominn.toml`` on the samples
+    ``build_alert_samples`` writes from a ``preprocess_data`` corpus (2
+    epochs, oversampled; 6 alerts an object at most, the cap of the
+    reference's alert pipeline), and ``configs/fusion.toml`` with the TriPool
+    spectra encoder on that corpus (1 epoch, then ``serve`` against
+    ``serve_alert_stream`` on ``best.pt``)."""
+    import torch
+
+    from applecider_tpu_torch.datasets.photo_dataset import load_photo_stats
+    from applecider_tpu_torch.datasets.spectra_dataset import SpectraDataset
+    from applecider_tpu_torch.infer.serve import iter_alert_samples, serve_alert_stream
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.ops import merge_scan
+    from applecider_tpu_torch.preprocessing.alert_samples import build_alert_samples
+    from applecider_tpu_torch.preprocessing.cli import preprocess_data
+    from applecider_tpu_torch.testing import make_corpus
+
+    on_card = dev.type == "cuda"
+    result: dict = {"launches": {}}
+    table = write_spectra_table(tmp / "spectra.npz", n_spectra, seed=23)
+    overrides = {"model_inputs": {p: {"data": {"data_location": str(table)}}
+                                  for p in ("train", "infer")},
+                 **(model_overrides or {})}
+    rt, res, launches = _runtime_train(
+        "runtime train, spectra.toml (lr 1e-3)", "spectra.toml", overrides, tmp / "spectra", dev,
+        card, {"train.epochs": 2, "model.SpectraNet.lr": 1e-3})
+    steps = res["history"][-1]["steps"]
+    _require_launches(launches, {n: k * steps for n, k in SPECTRA_STEP_KERNELS.items()},
+                      f"runtime train, spectra.toml ({steps} steps)", on_card)
+    losses = [r["train_loss"] for r in res["history"]]
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"the SpectraNet loss did not fall: {losses}")
+    result["launches"]["spectra"] = launches
+    result["launches"]["spectra_infer"] = _runtime_infer("spectra.toml", rt, (9,),
+                                                         {"ln_gelu_fwd": 5}, on_card)
+    rt, res, launches = _runtime_train(
+        "runtime train, spectra.toml with model.SpectraNet.redshift = true", "spectra.toml",
+        overrides, tmp / "redshift", dev, card,
+        {"train.epochs": 1, "model.SpectraNet.redshift": True})
+    steps = res["history"][-1]["steps"]
+    _require_launches(launches, {n: k * steps for n, k in SPECTRA_STEP_KERNELS.items()},
+                      f"runtime train, redshift ({steps} steps)", on_card)
+    result["launches"]["redshift"] = launches
+    result["launches"]["redshift_infer"] = _runtime_infer("spectra.toml redshift", rt, (),
+                                                          {"ln_gelu_fwd": 5}, on_card)
+    result["spectra_losses"] = losses
+    if not isinstance(rt.datasets["train"], SpectraDataset):
+        raise SystemExit("spectra.toml did not bind SpectraDataset")
+
+    t0 = time.perf_counter()
+    raw, labels = make_corpus(tmp, n_objects=n_objects, seed=17, learnable=True,
+                              n_photometry=(20, 60), spectrum_frac=0.3, n_alerts=4)
+    out = tmp / "out"
+    preprocess_data(str(raw), str(labels), str(out), min_per_class=2, seed=42)
+    index = build_alert_samples(out / "manifest_train.csv", tmp / "samples", max_per_object=6)
+    log(f"single-family corpus: {n_objects} learnable objects (20-60 points, 4 alerts) written, "
+        f"preprocessed and {len(index)} alert samples built in {time.perf_counter() - t0:.1f} s")
+    samples = {"model_inputs": {p: {"data": {"data_location": str(tmp / "samples")}}
+                                for p in ("train", "infer")},
+               **(model_overrides or {})}
+    rt, res, launches = _runtime_train("runtime train, astrominn.toml (oversampled)",
+                                       "astrominn.toml", samples, tmp / "astrominn", dev, card,
+                                       {"train.epochs": 2})
+    _require_launches(launches, {}, "runtime train, astrominn.toml", on_card)
+    log(f"  ImageAndMetadataDataset: {len(rt.datasets['train'].records)} samples, "
+        f"{len(rt.datasets['train'])} oversampled")
+    result["launches"]["astrominn"] = launches
+    result["launches"]["astrominn_infer"] = _runtime_infer("astrominn.toml", rt, (5,), {},
+                                                           on_card)
+
+    section = "applecider_tpu.datasets.fusion_dataset.FusionDataset"
+    fusion = {"data_loader": {"batch_size": 16},
+              "data_set": {section: {"manifest_path": str(out / "manifest_train.csv"),
+                                     "stats_event_path": str(out / "photo_stats.npz")}},
+              **(model_overrides or {})}
+    rt, res, launches = _runtime_train(
+        "runtime train, fusion.toml with model.AppleCider.spectra_encoder = tripool",
+        "fusion.toml", fusion, tmp / "fusion", dev, card,
+        {"train.epochs": 1, "model.AppleCider.spectra_encoder": "tripool"})
+    steps = res["history"][-1]["steps"]
+    val_batches = len(rt._loader(rt.datasets["validate"], shuffle=False))
+    want = {n: per * steps for n, per in PHOTOMETRY_STEP_KERNELS.items()}
+    want["masked_attention"] = EVAL_KERNELS["masked_attention"] * val_batches
+    _require_launches(launches, want, f"the TriPool fusion training ({steps} steps, {val_batches} "
+                      "validation batches)", on_card)
+    result["launches"]["fusion"] = launches
+    counters = zero_counters()
+    walked = merge_scan.walked_rows(dev) if on_card else torch.zeros(1)
+    walked.zero_()
+    served = rt.serve(raw_path=raw)
+    serve_launches = _kernel_launches(counters)
+    log(f"runtime serve, TriPool fusion: {served['n_alerts']} alerts at "
+        f"{served['alerts_per_sec']:.1f} alerts/s, host reading included [{card}]; K1 rows "
+        f"walked {int(walked.item())} (0 required)")
+    log(f"  launches in that run: { {n: v for n, v in serve_launches.items() if v} }")
+    # K1 and K2 serve the light curves; TriPool has no kernel, so no K3f
+    missing = [n for n in ("merge_scan", "masked_attention") if not serve_launches[n]]
+    stray = [n for n, v in serve_launches.items()
+             if v and n not in ("merge_scan", "masked_attention")]
+    if on_card and (missing or stray or walked.item()):
+        raise SystemExit(f"the TriPool fusion serving run: never launched {missing}, launched "
+                         f"{stray}, or K1 walked {int(walked.item())} rows")
+    model = build_fusion_model(rt.config, device=dev)
+    model.load_state_dict(torch.load(res["run_dir"] / "checkpoints" / "best.pt",
+                                     map_location=dev, weights_only=True)["params"])
+    mean, std = load_photo_stats(out / "photo_stats.npz")
+    sec = rt.config.section("serve")
+    direct = serve_alert_stream(model, iter_alert_samples(raw), batch_size=sec["batch_size"],
+                                length_buckets=tuple(sec["length_buckets"]), stats_mean=mean,
+                                stats_std=std, horizon_days=100.0, device=dev)
+    err = float(np.abs(np.stack([r["probs"] for r in served["results"]])
+                       - np.stack([r["probs"] for r in direct["results"]])).max())
+    log(f"  runtime serve vs serve_alert_stream on best.pt directly: max|dprob| {err:.3g} "
+        f"(<= 1e-6 required)")
+    if served["n_alerts"] != direct["n_alerts"] or not err <= 1e-6:
+        raise SystemExit("the TriPool fusion serving run disagrees with serve_alert_stream")
+    result["launches"]["serve"] = serve_launches
+    result.update(serve_err=err, alerts_per_s=served["alerts_per_sec"])
+    return result
+
+
+def check_single_families(card: str, device="cuda", model_overrides: dict | None = None,
+                          n_spectra: int = 256, n_objects: int = 64) -> dict:
+    """Phase 8: the spectra and image+metadata families at the published
+    widths in bf16 (8a staged steps, 8c the entry points) and in f32 (8b
+    parity). ``device``, ``model_overrides`` (e.g. small widths) and the
+    data sizes are for a dry run on the CPU."""
+    import tempfile
+
+    import torch
+
+    from applecider_tpu_torch.config import load_config
+    from applecider_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    cfgs = {k: load_config(REPO / "configs" / f"{k}.toml", model_overrides)
+            for k in ("spectra", "astrominn")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_single_") as tmp:
+        tmp = Path(tmp)
+        staged = single_staged_steps(card, tmp / "staged", cfgs, dev)
+        parity = single_parity(tmp / "parity", cfgs, dev)
+        protocol = single_protocol(card, tmp, dev, n_spectra, n_objects, model_overrides)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"staged": staged, "parity": parity, "protocol": protocol,
+            "staged_launches": {n: sum(r["launches"][n] for r in staged.values())
+                                for n in kernel_counters()},
+            "protocol_launches": {n: sum(r[n] for r in protocol["launches"].values())
+                                  for n in kernel_counters()}}
+
+
 def main() -> int:
     import torch
 
@@ -2210,6 +2656,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     workflow = check_workflow(card)
     photometry = check_photometry(card)
+    single = check_single_families(card)
     for r in records:
         by_path = {"serving": serving["launches"][r["name"]],
                    "raw_serving": raw["launches"][r["name"]],
@@ -2218,7 +2665,9 @@ def main() -> int:
                    "workflow_train": workflow["train_launches"][r["name"]],
                    "workflow_serve": workflow["serve_launches"][r["name"]],
                    "photometry_steps": photometry["staged_launches"][r["name"]],
-                   "photometry_protocol": photometry["protocol_launches"][r["name"]]}
+                   "photometry_protocol": photometry["protocol_launches"][r["name"]],
+                   "single_steps": single["staged_launches"][r["name"]],
+                   "single_protocol": single["protocol_launches"][r["name"]]}
         path = ("ladder" if r["name"].startswith(LADDER_PREFIX) else
                 "training" if r["name"] in TRAINING_KERNELS else "serving")
         r["launches"] = by_path[path]

@@ -63,6 +63,9 @@ MODULES = [
     "applecider_tpu_torch.datasets.oversampler",
     "applecider_tpu_torch.datasets.photo_dataset",
     "applecider_tpu_torch.datasets.fusion_dataset",
+    "applecider_tpu_torch.datasets.spectra_dataset",
+    "applecider_tpu_torch.datasets.image_metadata_dataset",
+    "applecider_tpu_torch.datasets.logit_sequence_dataset",
     "applecider_tpu_torch.train",
     "applecider_tpu_torch.train.optim",
     "applecider_tpu_torch.train.trainer",
@@ -73,6 +76,7 @@ MODULES = [
     "applecider_tpu_torch.tools.profile_training",
     "applecider_tpu_torch.tools.flash_microab",
     "applecider_tpu_torch.tools.kernel_timing",
+    "applecider_tpu_torch.tools.profile_tasks",
 ]
 
 
@@ -143,9 +147,11 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         AlertStreamPipeline, FusedSpectraStream, LengthBinnedFeeder, RoutedAlertStream,
     )
     from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.astrominn import AstroMiNNTask
     from applecider_tpu_torch.models.baseline_cls import BaselineCLSTask
     from applecider_tpu_torch.models.fusion import AppleCiderTask
     from applecider_tpu_torch.models.mpt import MPTTask
+    from applecider_tpu_torch.models.spectranet import SpectraNetTask, SpectraNetTriPoolTask
     from applecider_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -177,7 +183,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert serve_alert_stream(model, iter([]), device="cpu")["n_alerts"] == 0
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(AppleCiderTask(cfg, model), cfg, REPO / "build" / "unused")
-    for task_cls in (BaselineCLSTask, MPTTask):
+    for task_cls in (BaselineCLSTask, MPTTask, SpectraNetTask, SpectraNetTriPoolTask,
+                     AstroMiNNTask):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             task_cls(cfg)
         task = task_cls(cfg, device="cpu")

@@ -8,7 +8,9 @@ params, carried back by ``from_jax_params``; direct convs on the JAX side),
 ``Trainer.predict`` agrees with the JAX ``Trainer.predict`` and
 ``rt.serve(params=...)`` with the JAX ``rt.serve(params=...)``, alert by
 alert, within 1e-4 (atol; logits and probabilities). Each option the port
-has not ported raises and names itself.
+has not ported raises and names itself. The fusion model with the TriPool
+spectra encoder trains, infers and serves, the serving run equal to
+``serve_alert_stream`` on the weights of ``best.pt``.
 """
 
 import json
@@ -30,9 +32,10 @@ from applecider_tpu.train.runtime import AppleCiderRuntime as JaxRuntime
 from applecider_tpu.train.trainer import Trainer as JaxTrainer
 from applecider_tpu_torch.datasets.fusion_dataset import FusionDataset
 from applecider_tpu_torch.datasets.loader import DataLoader
-from applecider_tpu_torch.datasets.photo_dataset import PhotoEventsDataset
+from applecider_tpu_torch.datasets.photo_dataset import PhotoEventsDataset, load_photo_stats
 from applecider_tpu_torch.infer import serve as serve_mod
 from applecider_tpu_torch.infer.cli import main as serve_main
+from applecider_tpu_torch.models import build_fusion_model
 from applecider_tpu_torch.preprocessing.cli import preprocess_data
 from applecider_tpu_torch.testing import make_corpus
 from applecider_tpu_torch.train.runtime import AppleCiderRuntime
@@ -176,6 +179,32 @@ def test_serve_matches_jax(prepared, carried, tmp_path):
     assert json.loads((got["run_dir"] / "serve.json").read_text())["n_alerts"] == got["n_alerts"]
 
 
+def test_tripool_fusion_trains_infers_and_serves(prepared, tmp_path):
+    tri = {"channels": [2, 2, 2], "depths": [1, 1, 1], "kernel_sizes_per_stage": [[3], [3], [3]],
+           "use_ln_stages": [False, True, True]}
+    rt = _runtime(prepared, tmp_path, **{"model/AppleCider/spectra_encoder": "tripool",
+                                         "model/SpectraNetTriPool": tri})
+    rt.prepare()
+    res = rt.train()
+    assert all(np.isfinite(r["train_loss"]) for r in res["history"])
+    assert any(k.endswith("running_var") for k in rt._task().module.state_dict())
+    preds = rt.infer()
+    assert preds.shape == (len(rt.datasets["infer"]), 5) and np.isfinite(preds).all()
+    served = rt.serve(raw_path=prepared / "raw")
+    model = build_fusion_model(rt.config, device="cpu")
+    model.load_state_dict(torch.load(res["run_dir"] / "checkpoints" / "best.pt",
+                                     weights_only=True)["params"])
+    sec = rt.config.section("serve")
+    mean, std = load_photo_stats(prepared / "out" / "photo_stats.npz")
+    direct = serve_mod.serve_alert_stream(
+        model, serve_mod.iter_alert_samples(prepared / "raw"), batch_size=sec["batch_size"],
+        length_buckets=tuple(sec["length_buckets"]), stats_mean=mean, stats_std=std,
+        horizon_days=100.0, device="cpu")
+    assert served["n_alerts"] == direct["n_alerts"] > 20
+    np.testing.assert_allclose([r["probs"] for r in served["results"]],
+                               [r["probs"] for r in direct["results"]], rtol=0, atol=1e-6)
+
+
 def test_serve_falls_back_to_dataset_stats(prepared, tmp_path, monkeypatch):
     """[serve] without stats_event_path normalises with the fusion
     dataset's training stats; [serve].horizon_days overrides the dataset's
@@ -233,16 +262,16 @@ def test_warmup_without_a_trained_run_warns(prepared, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,verb", [
-    ("model/name", "SpectraNet", "train"),
-    ("model/name", "AstroMiNN", "train"),
-    ("model/name", "SpectraNetTriPool", "train"),
+    ("model/name", "MetaModel", "train"),
+    ("model/name", "Informer", "train"),
+    ("model/name", "SpectraViT", "train"),
     ("model/name", "BTSModel", "train"),
     ("model/name", "GalSpecNet", "train"),
     ("train/remat", True, "train"),
     ("parallel/multihost/enable", True, "train"),
     ("parallel/mesh_shape", [2, 4], "train"),
     ("serve/int8", True, "serve"),
-    ("model/AppleCider/spectra_encoder", "tripool", "train"),
+    ("model/name", "SpectraConvNeXt", "train"),
 ])
 def test_unported_options_raise(prepared, tmp_path, key, value, verb):
     rt = _runtime(prepared, tmp_path, **{key: value})

@@ -238,30 +238,19 @@ def test_oversampler_and_taxonomy_match_jax():
 
 
 # ------------------------------------------------------------------ config
-# keys of the JAX defaults that only the JAX package reads: the sections of
-# the datasets and the single-modality tasks the port has not ported, and
-# the JAX fusion task's implementation switches
-JAX_ONLY_SECTIONS = (
-    "data_set.applecider_tpu.datasets.image_metadata_dataset.ImageAndMetadataDataset",
-    "data_set.applecider_tpu.datasets.spectra_dataset.SpectraDataset",
-)
+# keys of the JAX defaults that only the JAX package reads: the JAX fusion
+# task's implementation switches, and keys that neither package's code reads
+JAX_ONLY_SECTIONS = ()
 JAX_ONLY_KEYS = {
     "model.AppleCider.weight_decay",
     # the JAX attention/remat routing, the torch checkpoint import, and the
     # weight decay the JAX classifier does not read either
     *(f"model.BaselineCLS.{k}" for k in (
         "attention_impl", "remat", "pretrained_weights_path", "weight_decay")),
-    # SpectraNetTask
-    *(f"model.SpectraNet.{k}" for k in (
-        "class_order", "flat_dim", "head_dropout", "lr", "redshift", "use_ln_stages",
-        "weight_decay")),
-    # AstroMiNNTask's optimizer groups and head
-    *(f"model.AstroMiNN.{k}" for k in (
-        "base_lr", "beta1", "beta2", "cnn_decay", "cnn_lr", "coord_decay", "coord_lr", "eps",
-        "fusion_beta1", "fusion_beta2", "fusion_decay", "fusion_lr", "fusion_router_dims",
-        "lc_decay", "lc_lr", "mag_decay", "mag_lr", "nst1_decay", "nst1_lr", "nst2_decay",
-        "nst2_lr", "num_classes", "psf_decay", "psf_lr", "router_beta1", "router_beta2",
-        "router_decay", "router_lr", "spatial_decay", "spatial_lr", "use_probabilities")),
+    # SpectraNet's reference-config keys that SpectraNetTask does not read
+    *(f"model.SpectraNet.{k}" for k in ("flat_dim", "use_ln_stages")),
+    # AstroMiNN's: the coord tower takes the nst1 settings, as in the reference
+    *(f"model.AstroMiNN.{k}" for k in ("coord_decay", "coord_lr", "fusion_router_dims")),
 }
 # keys the JAX package takes from its code's defaults and the port from its file
 PORT_ONLY_KEYS = {"model.AppleCider.criterion", "model.AppleCider.focal_gamma",
@@ -301,10 +290,15 @@ def test_load_config_matches_jax(config_file):
 
 
 def test_registry_resolves_fusion_names_and_refuses_the_rest():
+    from applecider_tpu_torch.datasets.image_metadata_dataset import ImageAndMetadataDataset
+    from applecider_tpu_torch.datasets.logit_sequence_dataset import LogitSequenceDataset
     from applecider_tpu_torch.datasets.photo_dataset import PhotoEventsDataset
+    from applecider_tpu_torch.datasets.spectra_dataset import SpectraDataset
+    from applecider_tpu_torch.models.astrominn import AstroMiNNTask
     from applecider_tpu_torch.models.baseline_cls import BaselineCLSTask
     from applecider_tpu_torch.models.fusion import build_fusion_model
     from applecider_tpu_torch.models.mpt import MPTTask
+    from applecider_tpu_torch.models.spectranet import SpectraNetTask, SpectraNetTriPoolTask
 
     for name in ("AppleCider", "Fusion", "applecider_tpu.models.fusion.AppleCiderTask",
                  "applecider_tpu_torch.models.fusion.build_fusion_model"):
@@ -326,17 +320,29 @@ def test_registry_resolves_fusion_names_and_refuses_the_rest():
     assert registry.builder_from_config(cfg, "infer") is FusionDataset
     cfg = load_config(REPO / "configs" / "photometry.toml")
     assert registry.builder_from_config(cfg, "train") is PhotoEventsDataset
-    for name in ("SpectraNet", "AstroMiNN", "SpectraNetTriPool", "BTSModel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+    for name, cls in (("SpectraNet", SpectraNetTask), ("SpectraNetTriPool", SpectraNetTriPoolTask),
+                      ("AstroMiNN", AstroMiNNTask)):
+        jax_module = "astrominn" if name == "AstroMiNN" else "spectranet"
+        for key in (name, f"applecider_tpu.models.{jax_module}.{cls.__name__}",
+                    f"{cls.__module__}.{cls.__name__}"):
+            assert registry.get_model(key) is cls
+    for cls, names in ((SpectraDataset, ("SpectraDataset", "SpectraData")),
+                       (ImageAndMetadataDataset, ("ImageAndMetadataDataset",)),
+                       (LogitSequenceDataset, ("LogitSequenceDataset",))):
+        for key in (*names, cls.SECTION, f"{cls.__module__}.{cls.__name__}"):
+            assert registry.get_dataset_class(key) is cls
+    assert registry.builder_from_config(load_config(REPO / "configs" / "spectra.toml"),
+                                        "train") is SpectraDataset
+    assert registry.builder_from_config(load_config(REPO / "configs" / "astrominn.toml"),
+                                        "infer") is ImageAndMetadataDataset
+    for name in ("MetaModel", "SpectraViT", "BTSModel"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 7"):
             registry.get_model(name)
-    for name in ("ImageAndMetadataDataset", "SpectraDataset"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 6"):
-            registry.get_dataset_class(name)
     for name in ("applecider_tpu.models.baseline_cls.BaselineCLS", "applecider_tpu.registry.x",
                  "NoSuchModel"):
         with pytest.raises(KeyError):
             registry.get_model(name)
-    with pytest.raises(KeyError):
-        registry.get_dataset_class("applecider_tpu.datasets.spectra_dataset.SpectraDataset")
+    with pytest.raises(KeyError, match="MetaModel is not ported yet"):
+        registry.get_model("applecider_tpu.models.zoo.MetaModel")
     with pytest.raises(KeyError, match="No dataset_class"):
         registry.builder_from_config(load_config(), "train")
