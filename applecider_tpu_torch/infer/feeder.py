@@ -8,7 +8,10 @@ runs earlier batches (counterpart of ``applecider_tpu/infer/feeder.py``).
    processes)            │  bounded buffer of prepared batches
   main thread       ``run_placed`` + resolve, ``depth`` batches in flight
 
-Thread mode keeps everything in one process; process mode moves decode
+A batch's stamps decode in one call of the native decoder
+(``native.decode_stamps_batch``), during which ctypes releases the GIL: so
+in thread mode the workers' decodes overlap each other and the main
+thread's launches. Process mode moves decode
 and packing to spawned worker processes, which never touch CUDA: they pack
 with ``infer.stream.pack_compact`` (the host half of
 ``FusedSpectraStream.place``) and the main process copies with
@@ -33,7 +36,7 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 
 from applecider_tpu_torch.infer.stream import pack_compact
-from applecider_tpu_torch.preprocessing.fitsio import decode_stamp
+from applecider_tpu_torch.native import decode_stamps_batch
 
 
 def assemble_samples(records: list[dict], hw: int = 63) -> list[dict]:
@@ -41,29 +44,31 @@ def assemble_samples(records: list[dict], hw: int = 63) -> list[dict]:
 
     A record is a pack sample whose ``image`` may instead be ``stamps``:
     a list of 3 gzipped-FITS byte blobs (science/template/difference, the
-    ZTF alert layout), decoded here into the (hw, hw, 3) image. Raises
-    ``ValueError`` naming the record when it does not hold 3 blobs or one
-    of them does not decode to (hw, hw).
+    ZTF alert layout), decoded here into the (hw, hw, 3) image; all the
+    records' stamps decode in one native call. Raises ``ValueError`` naming
+    the record when it does not hold 3 blobs or one of them does not decode
+    to (hw, hw).
     """
-    out = [dict(r) for r in records]
-    n_blobs = 0  # blobs of the records before this one, as the message counts them
-    for i, r in enumerate(out):
+    blobs, owners = [], []
+    for i, r in enumerate(records):
         if "stamps" not in r:
             continue
-        stamps = r.pop("stamps")
-        if len(stamps) != 3:
-            raise ValueError(f"record {i} has {len(stamps)} stamps; a ZTF alert carries 3 "
+        if len(r["stamps"]) != 3:
+            raise ValueError(f"record {i} has {len(r['stamps'])} stamps; a ZTF alert carries 3 "
                              "(science, template, difference)")
-        planes = []
-        for blob in stamps:
-            img = decode_stamp(blob)
-            if img is None or img.shape != (hw, hw):
-                raise ValueError(
-                    f"stamp decode failed for blob {n_blobs + len(planes)} (record {i}); "
-                    "undecodable cutouts must be filtered or substituted upstream")
-            planes.append(img)
-        n_blobs += 3
-        r["image"] = np.stack(planes, axis=-1)
+        owners.append(i)
+        blobs.extend(r["stamps"])
+    out = [dict(r) for r in records]
+    if owners:
+        images, ok = decode_stamps_batch(blobs, hw=hw)
+        if not ok.all():
+            bad = int(np.flatnonzero(~ok)[0])
+            raise ValueError(
+                f"stamp decode failed for blob {bad} (record {owners[bad // 3]}); "
+                "undecodable cutouts must be filtered or substituted upstream")
+        for j, i in enumerate(owners):
+            del out[i]["stamps"]
+            out[i]["image"] = np.stack(list(images[3 * j:3 * j + 3]), axis=-1)
     return out
 
 

@@ -11,9 +11,12 @@ was taken, the object's spectrum. From there ``FusedSpectraStream`` (with
 ``LengthBinnedFeeder`` when binned) runs merge, featurisation, resampling
 and the model on the device.
 
-Host reading uses no pandas (``preprocessing.table``) and decodes stamps
-with ``preprocessing.fitsio.decode_stamp``; the samples are the JAX
-package's bit for bit.
+Host reading uses no pandas (``preprocessing.table``). Stamps decode in
+one call of the native decoder (``native.decode_stamps_batch``) for all the
+3n stamps of an object's servable alerts; an alert whose three stamps do
+not all decode to (hw, hw) takes the per-stamp ladder of
+``preprocessing.fitsio.decode_stamp``, which centre pads or crops. The
+samples are the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 from applecider_tpu_torch.infer.stream import (
     LENGTH_BUCKETS, FusedSpectraStream, LengthBinnedFeeder, decimate_spectrum,
 )
+from applecider_tpu_torch.native import decode_stamps_batch
 from applecider_tpu_torch.preprocessing.builder import ALERT_META_KEEP, _meta_vector
 from applecider_tpu_torch.preprocessing.config import JD_MJD_OFFSET
 from applecider_tpu_torch.preprocessing.fitsio import decode_stamp
@@ -67,6 +71,24 @@ def _alert_triplet(alert: dict, hw: int = 63) -> Optional[np.ndarray]:
     if any(p is None for p in planes):
         return None
     return np.stack([_fit_hw(p.astype(np.float32), hw) for p in planes], axis=-1)
+
+
+def _decode_all_triplets(alerts: list, hw: int = 63) -> list[Optional[np.ndarray]]:
+    """Each alert's (hw, hw, 3) image, or None, from one native call for
+    all 3n stamps; an alert whose three stamps do not all decode to
+    (hw, hw) (short edge cutouts, a missing or undecodable stamp) takes
+    ``_alert_triplet``."""
+    blobs: list = []
+    for alert in alerts:
+        for k in CUTOUT_KEYS:
+            try:
+                blob = alert[k]["stampData"]
+            except (KeyError, TypeError):
+                blob = None
+            blobs.append(blob if isinstance(blob, (bytes, bytearray, np.ndarray)) else b"")
+    images, ok = decode_stamps_batch(blobs, hw=hw)
+    return [np.stack(list(images[3 * i:3 * i + 3]), axis=-1) if ok[3 * i:3 * i + 3].all()
+            else _alert_triplet(alert, hw) for i, alert in enumerate(alerts)]
 
 
 def _raw_spectrum(df: Optional[Table],
@@ -137,12 +159,14 @@ def alert_samples_for_object(
             cand_jd.append(float(cand["jd"]))
         except (KeyError, TypeError, ValueError):
             cand_jd.append(np.nan)
+    finite = [k for k in range(len(alerts)) if np.isfinite(cand_jd[k])]
+    triplets = dict(zip(finite, _decode_all_triplets([alerts[k] for k in finite], hw)))
     for k in np.argsort(np.asarray(cand_jd), kind="stable"):
         jd_a = cand_jd[k]
         if not np.isfinite(jd_a):
             continue
         alert = alerts[k]
-        image = _alert_triplet(alert, hw)
+        image = triplets[k]
         if image is None:
             continue  # reference policy: an alert needs all three cutouts
         n = int(np.searchsorted(jd_sorted, jd_a, side="right"))

@@ -12,6 +12,9 @@ Counterpart of ``applecider_tpu/infer/stream.py``. On each packed batch,
 * spectrum resampling onto the 3481-bin grid and mean/MAD normalisation;
 * the AppleCider forward and a softmax.
 
+That forward is one module, ``ServingProgram``, which ``torch.export``
+traces whole (``train.runtime.export_serving``).
+
 ``FusedSpectraStream`` packs each batch with a compact spectra block (only
 the spectra that exist, row 0 the zero spectrum), ``RoutedAlertStream``
 splits it into the alerts with a spectrum and a ``skip_spectra`` pipeline
@@ -29,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from applecider_tpu_torch.device import resolve_device
 from applecider_tpu_torch.ops.merge_scan import seg_ids, seg_ids_reference
@@ -151,21 +155,22 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[:, None])[:, 0]
 
 
-class SpectrumGrid:
-    """A wavelength grid held on a device, with linear interpolation (and
-    boundary extrapolation) of packed spectra onto it plus MAD
-    normalisation."""
+class SpectrumGrid(nn.Module):
+    """A wavelength grid held on a device (buffers ``values`` and, on a
+    uniform grid, ``padded``), with linear interpolation (and boundary
+    extrapolation) of packed spectra onto it plus MAD normalisation."""
 
     def __init__(self, grid, device):
+        super().__init__()
         self.gnp = np.asarray(grid, np.float32)
-        self.values = torch.from_numpy(self.gnp.copy()).to(device)
+        self.register_buffer("values", torch.from_numpy(self.gnp.copy()).to(device))
         self.uniform = _uniform_grid(self.gnp)
         if self.uniform:
             G = self.gnp.shape[0]
             self.g0 = float(self.gnp[0])
             self.inv_dg = float((G - 1) / (self.gnp[-1] - self.gnp[0]))
             inf = torch.full((1,), _INF, device=device)
-            self.padded = torch.cat([-inf, self.values, inf])  # (G + 2,)
+            self.register_buffer("padded", torch.cat([-inf, self.values, inf]))  # (G + 2,)
 
     def resample(self, wl, flux, valid) -> torch.Tensor:
         """(R, S) spectra whose valid entries form an ascending-wavelength
@@ -256,6 +261,63 @@ class SpectrumGrid:
 DEFAULT_GRID = np.linspace(4500.0, 7980.0, 3481, dtype=np.float32)
 
 
+class ServingProgram(nn.Module):
+    """The serving forward of one packed batch as one module: device
+    preprocessing (``preprocess``), the AppleCider forward and the softmax.
+
+    ``forward(raw)`` takes ``AlertStreamPipeline``'s raw dict and returns
+    (B, num_classes) f32 probabilities. It holds the photometry statistics
+    and the spectrum grid as buffers, records no ``inference_mode`` and
+    branches only on shapes and on the options fixed at construction, so
+    that ``torch.export`` traces it whole (``train.runtime.export_serving``)
+    and the K1, K2 and K3f custom ops stay nodes of its graph.
+    """
+
+    def __init__(self, model, mean: torch.Tensor, std: torch.Tensor, grid: SpectrumGrid,
+                 horizon_days: Optional[float], compact_spectra: bool, skip_spectra: bool,
+                 kernels: bool):
+        super().__init__()
+        self.model = model
+        self.grid = grid
+        self.register_buffer("mean", mean)
+        self.register_buffer("std", std)
+        # metadata24 = meta19 + these context columns
+        self.register_buffer("ctx_cols", torch.tensor([0, 1, 3, 4, 6], device=mean.device))
+        self.horizon_days = horizon_days
+        self.compact_spectra = compact_spectra
+        self.skip_spectra = skip_spectra
+        self.kernels = kernels
+
+    def forward(self, raw: dict[str, torch.Tensor]) -> torch.Tensor:
+        logits = self.model(**self.preprocess(raw), kernels=self.kernels)
+        return torch.softmax(logits.float(), dim=-1)
+
+    def preprocess(self, raw: dict) -> dict:
+        """Device preprocessing of a placed batch: the model's inputs."""
+        t, valid = raw["photo_t"], raw["photo_valid"]
+        t_sorted = torch.where(valid, t, _INF)
+        seg_fn = seg_ids if self.kernels else seg_ids_reference
+        seg = seg_fn(t_sorted, raw["photo_band"], valid, DT_DAYS)
+        merged = merge_light_curve(t, raw["photo_flux"], raw["photo_err"], raw["photo_band"],
+                                   valid, seg)
+        feats, pad_mask, ctx = featurize_events(*merged, horizon=self.horizon_days)
+        cont = (feats[..., :4] - self.mean) / (self.std + 1e-8)
+        photometry = torch.cat([cont, feats[..., 4:]], dim=-1)
+        metadata = torch.cat([raw["meta19"], ctx.index_select(1, self.ctx_cols)], dim=1)
+
+        if self.skip_spectra:
+            spectra = torch.zeros((1, self.grid.gnp.shape[0]), device=t.device)
+        else:
+            spectra = self.grid.resample(raw["spec_wl"], raw["spec_flux"], raw["spec_valid"])
+            has = raw["spec_has"] if self.compact_spectra else raw["has_spectrum"]
+            spectra = torch.where(has[:, None], spectra, 0.0)
+        return {
+            "photometry": photometry, "photo_mask": pad_mask, "metadata": metadata,
+            "images": raw["image"], "spectra": spectra,
+            "spec_gather": raw["spec_gather"].long() if self.compact_spectra else None,
+        }
+
+
 class AlertStreamPipeline:
     """Preprocessing + AppleCider forward over fixed-shape packed batches.
 
@@ -265,7 +327,8 @@ class AlertStreamPipeline:
       either spec_wl/spec_flux (B, S) f32, spec_valid (B, S) bool,
       has_spectrum (B,) bool, or with ``compact_spectra`` a compact
       (S+1, W) block with spec_has (S+1,) and spec_gather (B,) int32.
-    Returns (B, num_classes) f32 probabilities.
+    Returns (B, num_classes) f32 probabilities, from ``program``, the
+    ``ServingProgram`` that ``export_serving`` exports.
 
     ``kernels=False`` runs the plain PyTorch versions of the kernels on the
     same device: the yardstick the kernel path is held to.
@@ -288,51 +351,26 @@ class AlertStreamPipeline:
         if model_dev != self.device:
             raise ValueError(f"model is on {model_dev}, pipeline on {self.device}")
         self.model = model
-        self.mean = torch.as_tensor(
+        mean = torch.as_tensor(
             np.zeros(4, np.float32) if stats_mean is None else np.asarray(stats_mean, np.float32)
         ).to(self.device)
-        self.std = torch.as_tensor(
+        std = torch.as_tensor(
             np.ones(4, np.float32) if stats_std is None else np.asarray(stats_std, np.float32)
         ).to(self.device)
-        self.horizon_days = None if horizon_days is None else float(horizon_days)
-        self.grid = SpectrumGrid(DEFAULT_GRID if wave_grid is None else wave_grid, self.device)
-        self.compact_spectra = bool(compact_spectra)
-        self.skip_spectra = bool(skip_spectra)
-        self.kernels = bool(kernels)
-        # metadata24 = meta19 + these context columns
-        self._ctx_cols = torch.tensor([0, 1, 3, 4, 6], device=self.device)
+        grid = SpectrumGrid(DEFAULT_GRID if wave_grid is None else wave_grid, self.device)
+        self.program = ServingProgram(
+            model, mean, std, grid, None if horizon_days is None else float(horizon_days),
+            bool(compact_spectra), bool(skip_spectra), bool(kernels))
 
     @torch.inference_mode()
     def __call__(self, raw: dict) -> torch.Tensor:
         if raw["photo_t"].shape[0] == 0:
             return torch.zeros((0, self.model.num_classes), device=self.device)
-        logits = self.model(**self.preprocess(raw), kernels=self.kernels)
-        return torch.softmax(logits.float(), dim=-1)
+        return self.program(raw)
 
     def preprocess(self, raw: dict) -> dict:
         """Device preprocessing of a placed batch: the model's inputs."""
-        t, valid = raw["photo_t"], raw["photo_valid"]
-        t_sorted = torch.where(valid, t, _INF)
-        seg_fn = seg_ids if self.kernels else seg_ids_reference
-        seg = seg_fn(t_sorted, raw["photo_band"], valid, DT_DAYS)
-        merged = merge_light_curve(t, raw["photo_flux"], raw["photo_err"], raw["photo_band"],
-                                   valid, seg)
-        feats, pad_mask, ctx = featurize_events(*merged, horizon=self.horizon_days)
-        cont = (feats[..., :4] - self.mean) / (self.std + 1e-8)
-        photometry = torch.cat([cont, feats[..., 4:]], dim=-1)
-        metadata = torch.cat([raw["meta19"], ctx.index_select(1, self._ctx_cols)], dim=1)
-
-        if self.skip_spectra:
-            spectra = torch.zeros((1, self.grid.gnp.shape[0]), device=self.device)
-        else:
-            spectra = self.grid.resample(raw["spec_wl"], raw["spec_flux"], raw["spec_valid"])
-            has = raw["spec_has"] if self.compact_spectra else raw["has_spectrum"]
-            spectra = torch.where(has[:, None], spectra, 0.0)
-        return {
-            "photometry": photometry, "photo_mask": pad_mask, "metadata": metadata,
-            "images": raw["image"], "spectra": spectra,
-            "spec_gather": raw["spec_gather"].long() if self.compact_spectra else None,
-        }
+        return self.program.preprocess(raw)
 
 
 # ------------------------------------------------------- host packing

@@ -1,9 +1,11 @@
 """K2: eval-path masked self-attention.
 
 Counterpart of ``applecider_tpu/ops/attention.py``. ``masked_attention``
-launches the hand-written kernel ``csrc/attention.cu`` on CUDA tensors and
-runs the plain PyTorch version ``masked_attention_reference`` on CPU
-tensors; any other device raises. Both follow the TPU kernel's numerics:
+calls the custom op ``applecider_torch::masked_attention``, which launches
+the hand-written kernel ``csrc/attention.cu`` on CUDA tensors and runs the
+plain PyTorch version ``masked_attention_reference`` on CPU tensors; any
+other device raises. As a custom op it stays one node of a
+``torch.export`` graph. Both follow the TPU kernel's numerics:
 1/sqrt(hd) folded into q in f32, -1e9 added at padded keys, an f32 softmax
 with max subtraction, the unnormalised P rounded to the I/O dtype before
 P.V, and each row divided by its f32 sum at the end. The bf16 kernel runs
@@ -16,10 +18,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
-from applecider_tpu_torch.ops.kernel import CudaKernel, dtype_code, require_aligned, require_cuda
+from applecider_tpu_torch.ops.kernel import (
+    CudaKernel, dtype_code, require_aligned, require_cpu_or_cuda, require_cuda,
+)
 
 KERNEL = CudaKernel(
     "attention", "ac_masked_attention",
@@ -48,8 +53,16 @@ def masked_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_padding_mask: torch.Tensor | None) -> torch.Tensor:
     """(B, H, L, hd) attention; kernel K2 on CUDA, the plain version on CPU."""
-    if q.device.type == "cpu":
-        return masked_attention_reference(q, k, v, key_padding_mask)
+    require_cpu_or_cuda(q, k, v, key_padding_mask)
+    return masked_attention_op(q, k, v, key_padding_mask)
+
+
+@torch.library.custom_op("applecider_torch::masked_attention", mutates_args=(),
+                         device_types="cuda")
+def masked_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """K2 on CUDA tensors (the CPU's implementation is
+    ``masked_attention_reference``)."""
     tensors = (q, k, v) if key_padding_mask is None else (q, k, v, key_padding_mask)
     dev = require_cuda(*tensors)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -71,6 +84,13 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:
         require_aligned(q, k, v)
     out = torch.empty_like(q)
-    mask_ptr = None if key_padding_mask is None else key_padding_mask
-    KERNEL.launch(dev, q, k, v, mask_ptr, out, B, H, L, hd, 1.0 / math.sqrt(hd), code)
+    KERNEL.launch(dev, q, k, v, key_padding_mask, out, B, H, L, hd, 1.0 / math.sqrt(hd), code)
     return out
+
+
+masked_attention_op.register_kernel("cpu")(masked_attention_reference)
+
+
+@masked_attention_op.register_fake
+def _(q, k, v, key_padding_mask):
+    return torch.empty_like(q)

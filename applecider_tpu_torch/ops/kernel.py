@@ -143,6 +143,15 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def require_cpu_or_cuda(*tensors: torch.Tensor) -> None:
+    """Raises unless the tensors lie on the CPU or a CUDA device: a kernel's
+    custom op has an implementation for each of the two and no other."""
+    for t in tensors:
+        if t is not None and t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"kernel runs on CUDA tensors (or CPU tensors, its plain version), "
+                             f"got {t.device}")
+
+
 def require_aligned(*tensors: torch.Tensor, nbytes: int = 16) -> None:
     """Raises unless each tensor's data starts on an ``nbytes`` boundary: the
     bf16 tensor-core kernels load q, k and v in 16-byte chunks."""

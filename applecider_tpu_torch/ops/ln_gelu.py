@@ -3,9 +3,11 @@
 Counterpart of ``applecider_tpu/ops/ln_gelu.py``. ``ln_gelu`` is a
 ``torch.autograd.Function`` over the two kernel wrappers:
 
-* ``ln_gelu_forward`` launches ``ac_ln_gelu_fwd`` (``csrc/ln_gelu.cu``) on a
-  CUDA tensor and runs ``ln_gelu_reference`` on a CPU tensor; statistics and
-  GELU are f32, the result is rounded once to the input dtype;
+* ``ln_gelu_forward`` calls the custom op ``applecider_torch::ln_gelu_fwd``,
+  which launches ``ac_ln_gelu_fwd`` (``csrc/ln_gelu.cu``) on a CUDA tensor
+  and runs ``ln_gelu_reference`` on a CPU tensor, and stays one node of a
+  ``torch.export`` graph; statistics and GELU are f32, the result is
+  rounded once to the input dtype;
 * ``ln_gelu_backward`` launches ``ac_ln_gelu_bwd`` on a CUDA tensor and runs
   ``ln_gelu_backward_reference`` on a CPU tensor: everything is recomputed
   from x in f32, dx comes out in x's dtype, and the kernel's per-block f32
@@ -25,7 +27,9 @@ from typing import NamedTuple
 
 import torch
 
-from applecider_tpu_torch.ops.kernel import CudaKernel, dtype_code, require_cuda
+from applecider_tpu_torch.ops.kernel import (
+    CudaKernel, dtype_code, require_cpu_or_cuda, require_cuda,
+)
 
 _SQRT2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -136,8 +140,14 @@ def _check_vectors(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> 
 def ln_gelu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
     """LN+GELU over the last dim of ``x``; kernel K3f on CUDA, plain on CPU."""
-    if x.device.type == "cpu":
-        return ln_gelu_reference(x, scale, bias, eps)
+    require_cpu_or_cuda(x, scale, bias)
+    return ln_gelu_fwd_op(x, scale, bias, float(eps))
+
+
+@torch.library.custom_op("applecider_torch::ln_gelu_fwd", mutates_args=(), device_types="cuda")
+def ln_gelu_fwd_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """K3f on CUDA tensors (the CPU's implementation is ``ln_gelu_reference``)."""
     dev = require_cuda(x, scale, bias)
     C = _check_vectors(x, scale, bias)
     if not (x.is_contiguous() and scale.is_contiguous() and bias.is_contiguous()):
@@ -146,6 +156,14 @@ def ln_gelu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x)
     KERNEL.launch(dev, x, scale, bias, y, x.numel() // max(C, 1), C, float(eps), code)
     return y
+
+
+ln_gelu_fwd_op.register_kernel("cpu")(ln_gelu_reference)
+
+
+@ln_gelu_fwd_op.register_fake
+def _(x, scale, bias, eps):
+    return torch.empty_like(x)
 
 
 def ln_gelu_backward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,

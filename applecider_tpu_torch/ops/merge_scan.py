@@ -1,10 +1,12 @@
 """K1: the merge's greedy per-band group-start scan, batched.
 
-Counterpart of ``applecider_tpu/ops/merge_scan.py``. ``seg_ids`` launches
-the hand-written kernel ``csrc/merge_scan.cu`` on a CUDA tensor and runs
-the plain PyTorch version ``seg_ids_reference`` on a CPU tensor; any other
-device raises. Both return, for every slot, the position of the start of
-its band's open group, or P for invalid slots and bands outside [0, 3).
+Counterpart of ``applecider_tpu/ops/merge_scan.py``. ``seg_ids`` calls the
+custom op ``applecider_torch::seg_ids``, which launches the hand-written
+kernel ``csrc/merge_scan.cu`` on a CUDA tensor and runs the plain PyTorch
+version ``seg_ids_reference`` on a CPU tensor; any other device raises. As
+a custom op it stays one node of a ``torch.export`` graph. Both return, for
+every slot, the position of the start of its band's open group, or P for
+invalid slots and bands outside [0, 3).
 
 The kernel gives a block to each light curve and a thread to each step.
 Where each band's valid times are non-decreasing, with no NaN and no -inf
@@ -24,7 +26,7 @@ import ctypes
 
 import torch
 
-from applecider_tpu_torch.ops.kernel import CudaKernel, require_cuda
+from applecider_tpu_torch.ops.kernel import CudaKernel, require_cpu_or_cuda, require_cuda
 
 N_BANDS = 3
 
@@ -75,8 +77,14 @@ def seg_ids_reference(t_sorted: torch.Tensor, band: torch.Tensor, valid: torch.T
 def seg_ids(t_sorted: torch.Tensor, band: torch.Tensor, valid: torch.Tensor,
             dt_days: float = 0.5) -> torch.Tensor:
     """Batched group-start ids; kernel K1 on CUDA, the plain version on CPU."""
-    if t_sorted.device.type == "cpu":
-        return seg_ids_reference(t_sorted, band, valid, dt_days)
+    require_cpu_or_cuda(t_sorted, band, valid)
+    return seg_ids_op(t_sorted, band, valid, float(dt_days))
+
+
+@torch.library.custom_op("applecider_torch::seg_ids", mutates_args=(), device_types="cuda")
+def seg_ids_op(t_sorted: torch.Tensor, band: torch.Tensor, valid: torch.Tensor,
+               dt_days: float) -> torch.Tensor:
+    """K1 on CUDA tensors (the CPU's implementation is ``seg_ids_reference``)."""
     dev = require_cuda(t_sorted, band, valid)
     if t_sorted.dim() != 2 or band.shape != t_sorted.shape or valid.shape != t_sorted.shape:
         raise ValueError(f"seg_ids takes three (B, P) tensors, got {t_sorted.shape}, "
@@ -89,3 +97,11 @@ def seg_ids(t_sorted: torch.Tensor, band: torch.Tensor, valid: torch.Tensor,
     out = torch.empty((B, P), dtype=torch.int32, device=dev)
     KERNEL.launch(dev, t_sorted, band, valid, out, walked_rows(dev), B, P, float(dt_days))
     return out
+
+
+seg_ids_op.register_kernel("cpu")(seg_ids_reference)
+
+
+@seg_ids_op.register_fake
+def _(t_sorted, band, valid, dt_days):
+    return t_sorted.new_empty(t_sorted.shape, dtype=torch.int32)

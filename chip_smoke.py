@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device and build: the card's name and power limit, then every kernel of
    the serving and training paths built from ``applecider_tpu_torch/csrc``
-   with nvcc, one process per source, all started together, and whether
-   the C++ compiler finds ``zlib.h``;
+   with nvcc, one process per source, all started together, and the native
+   stamp decoder (``applecider_tpu_torch/native``) with g++ (its variant:
+   libdeflate or zlib);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, with kernel, plain, bound and (where one
    PyTorch call computes the same function) library times: K1 exactly,
@@ -56,7 +57,9 @@ Phases, in order; any failure exits non-zero before the result line:
 3b. raw-alert serving, with phase 3's weights: 128 ZTF-layout object
    directories written by ``testing.make_corpus`` (16 alerts each, light
    curves of U(20, 300) points, 30% with a spectrum, gzipped FITS stamps)
-   read and decoded on the host alone (host ms), then served from the
+   read and decoded on the host alone (host ms, and its split, the stamps
+   decoded by the native decoder as the reader calls it, beside the same
+   stamps decoded on one thread natively and in Python), then served from the
    directories through ``serve_alert_stream(model, iter_alert_samples(dir))``
    in bf16 (alerts/s, host reading included), with K1, K2 and K3f's launch
    counts read from that run alone; then, in f32 with TF32 off on the first
@@ -122,7 +125,22 @@ Phases, in order; any failure exits non-zero before the result line:
    TriPool spectra encoder on that corpus for 1 epoch, then ``serve``
    (K1 and K2 launched, no K3f) within 1e-6 of ``serve_alert_stream`` on
    ``best.pt``;
-9. one JSON line describing each kernel, then the result line.
+9. deployment, with phase 3's weights: (a) the native decoder over every
+   stamp of phase 3b's corpus against ``decode_stamp`` bit for bit, timed
+   at 1, 2, 4, 8 and all threads, then ``OverlappedServingFeeder`` in
+   thread mode with 1, 2 and 4 workers on records carrying the corpus'
+   stamps (alerts/s beside the serial router's), in f32 (TF32 off, within
+   1e-6 of the serial router) and bf16 (within 1e-3); (b) ``export_serving`` of
+   the bf16 model at every serving length bucket (seconds each, every one
+   symbolic in batch, each graph holding K1 x1, K2 x4 and K3f x5 as
+   custom-op nodes), then ``engine_serving`` over phase 3b's corpus against
+   ``serve_alert_stream`` on the same weights (<= 1e-3; alerts/s of both in
+   this call; the launch counters 1/4/5 a program call), and one f32
+   program (P = 257, TF32 off) against the live f32 pipeline (<= 1e-5);
+   (c) ``export`` of phase 6's trained fusion run in f32 and ``engine``
+   against ``infer`` (<= 1e-5) with a ragged tail batch, K2 4 and K3f 5
+   launches a batch;
+10. one JSON line describing each kernel, then the result line.
 
 It imports nothing of JAX.
 """
@@ -132,6 +150,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import re
 import shutil
 import sys
@@ -204,23 +223,18 @@ def device_and_build() -> str:
                 log(f"  nvcc[{name}] {line.strip()}")
     if spilled:  # K3b holds a row in registers: a spill would send it back to memory
         raise SystemExit(f"ptxas spilled registers in K3b: {spilled}")
-    probe_zlib()
+    build_native_decoder()
     return card
 
 
-def probe_zlib() -> None:
-    """Log whether this machine's C++ compiler finds ``zlib.h``: a native
-    stamp decoder that links zlib could be built here only if it does."""
-    import subprocess
+def build_native_decoder() -> None:
+    """Build (or load) the native stamp decoder and log its variant."""
+    from applecider_tpu_torch import native
 
-    try:
-        out = subprocess.run(["g++", "-E", "-x", "c++", "-"], input="#include <zlib.h>\n",
-                             capture_output=True, text=True, timeout=60)
-        found = "present" if out.returncode == 0 else "absent"
-        detail = out.stderr.strip().splitlines()[0] if out.returncode else ""
-    except (OSError, subprocess.TimeoutExpired) as e:
-        found, detail = "not probed", f"{type(e).__name__}: {e}"
-    log(f"zlib.h (g++ -E, for a native stamp decoder): {found} {detail}".rstrip())
+    t0 = time.perf_counter()
+    variant = native.build_variant()
+    log(f"native stamp decoder ({variant} variant) built in {time.perf_counter() - t0:.1f} s: "
+        f"{native.get_lib()._name}")
 
 
 def _short_kernel_name(mangled: str) -> str:
@@ -1271,50 +1285,62 @@ def check_serving(cfg=None, device="cuda", n_alerts: int = 2048, flush_bs: int =
 
 
 # ------------------------------------------------------------- phase 3b
-def _stamp_records(pairs: list) -> list:
-    """Records carrying raw stamps: each sample with its image written back
-    to three gzipped FITS blobs (float32 FITS holds the pixels exactly)."""
-    from applecider_tpu_torch.preprocessing.fitsio import write_fits_image
+def _stamp_records(pairs: list, data_dir: Path) -> list:
+    """Records carrying raw stamps: each sample without its image, with the
+    three gzipped FITS blobs its alert carries in ``alerts.npy``."""
+    from applecider_tpu_torch.infer.serve import CUTOUT_KEYS
 
-    records = []
-    for _, s in pairs:
-        r = {k: v for k, v in s.items() if k != "image"}
-        r["stamps"] = [write_fits_image(np.ascontiguousarray(s["image"][:, :, c])) for c in range(3)]
-        records.append(r)
-    return records
+    blobs = {}
+    for obj in sorted({i["object_id"] for i, _ in pairs}):
+        for a in np.load(data_dir / obj / "alerts.npy", allow_pickle=True):
+            blobs[(obj, float(a["candidate"]["jd"]))] = [a[k]["stampData"] for k in CUTOUT_KEYS]
+    return [{**{k: v for k, v in s.items() if k != "image"},
+             "stamps": blobs[(i["object_id"], i["jd"])]} for i, s in pairs]
 
 
 def host_split(data_dir: Path) -> dict:
     """Milliseconds of each host step of reading the corpus, one pass each
-    over every object: unpickling ``alerts.npy``, decoding the stamps,
-    reading ``photometry.csv`` with the alerts' photometry, reading
-    ``spectra.csv``."""
-    from applecider_tpu_torch.infer.serve import _alert_triplet, _raw_spectrum
+    over every object: unpickling ``alerts.npy``, decoding the stamps as
+    the reader does (one native call an object, every core), reading
+    ``photometry.csv`` with the alerts' photometry, reading
+    ``spectra.csv``; and, beside them, the same stamps decoded by the
+    native decoder on one thread and by ``decode_stamp`` in Python (one
+    thread)."""
+    from applecider_tpu_torch.infer.serve import (
+        CUTOUT_KEYS, _alert_triplet, _decode_all_triplets, _raw_spectrum,
+    )
+    from applecider_tpu_torch.native import decode_stamps_batch
     from applecider_tpu_torch.preprocessing.photometry import load_photometry
     from applecider_tpu_torch.preprocessing.spectra import (
         extract_spectrum_time_mjd, read_spectra_csv,
     )
 
-    ms = dict.fromkeys(("alerts_npy", "stamps", "photometry_csv", "spectra_csv"), 0.0)
+    keys = ("alerts_npy", "stamps", "photometry_csv", "spectra_csv", "stamps_native_one_thread",
+            "stamps_python")
+    ms = dict.fromkeys(keys, 0.0)
     for obj in sorted(p.name for p in data_dir.iterdir()):
         t0 = time.perf_counter()
         alerts = list(np.load(data_dir / obj / "alerts.npy", allow_pickle=True))
         t1 = time.perf_counter()
-        [_alert_triplet(a) for a in alerts]
+        _decode_all_triplets(alerts)
         t2 = time.perf_counter()
         load_photometry(obj, data_dir, alerts=alerts)
         t3 = time.perf_counter()
         df = read_spectra_csv(obj, data_dir)
         _raw_spectrum(df), extract_spectrum_time_mjd(df)
         t4 = time.perf_counter()
-        for k, a, b in (("alerts_npy", t0, t1), ("stamps", t1, t2), ("photometry_csv", t2, t3),
-                        ("spectra_csv", t3, t4)):
+        decode_stamps_batch([a[k]["stampData"] for a in alerts for k in CUTOUT_KEYS], n_threads=1)
+        t5 = time.perf_counter()
+        [_alert_triplet(a) for a in alerts]
+        t6 = time.perf_counter()
+        for k, a, b in zip(keys, (t0, t1, t2, t3, t4, t5), (t1, t2, t3, t4, t5, t6)):
             ms[k] += (b - a) * 1e3
     return ms
 
 
-def check_raw_serving(model, model32, card: str, n_objects: int = 128, alerts_per_object: int = 16,
-                      batch_size: int = 512, n_parity: int = 256, seed: int = 5) -> dict:
+def check_raw_serving(model, model32, card: str, tmp: Path, n_objects: int = 128,
+                      alerts_per_object: int = 16, batch_size: int = 512, n_parity: int = 256,
+                      seed: int = 5) -> dict:
     """Phase 3b: raw-alert serving, from object directories on disk to
     per-alert probabilities, with phase 3's weights.
 
@@ -1329,10 +1355,9 @@ def check_raw_serving(model, model32, card: str, n_objects: int = 128, alerts_pe
     against ``FusedSpectraStream`` and the kernel path against the plain
     path, each within 1e-4 in probability; ``OverlappedServingFeeder`` in
     thread and process mode on records carrying stamps against the serial
-    router within 1e-6.
+    router within 1e-6. The corpus is written under ``tmp``, which the
+    caller owns (phase 9 serves it again).
     """
-    import tempfile
-
     import torch
 
     from applecider_tpu_torch.infer.feeder import OverlappedServingFeeder, assemble_samples
@@ -1350,70 +1375,75 @@ def check_raw_serving(model, model32, card: str, n_objects: int = 128, alerts_pe
         if on_card:
             torch.cuda.synchronize()
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_") as tmp:
-        t0 = time.perf_counter()
-        data_dir, _ = make_corpus(Path(tmp), n_objects=n_objects, seed=seed, n_photometry=(20, 300),
-                                  n_alerts=alerts_per_object, spectrum_frac=0.3)
-        size = sum(f.stat().st_size for f in data_dir.rglob("*") if f.is_file())
-        n_spec_objects = len(list(data_dir.glob("*/spectra.csv")))
-        log(f"raw corpus: {n_objects} object directories, {alerts_per_object} alerts each, "
-            f"{n_spec_objects} with a spectrum, {size / 2**20:.1f} MiB, written in "
-            f"{time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    data_dir, _ = make_corpus(tmp, n_objects=n_objects, seed=seed, n_photometry=(20, 300),
+                              n_alerts=alerts_per_object, spectrum_frac=0.3)
+    size = sum(f.stat().st_size for f in data_dir.rglob("*") if f.is_file())
+    n_spec_objects = len(list(data_dir.glob("*/spectra.csv")))
+    log(f"raw corpus: {n_objects} object directories, {alerts_per_object} alerts each, "
+        f"{n_spec_objects} with a spectrum, {size / 2**20:.1f} MiB, written in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
 
-        # the host alone: read CSVs and alerts, decode stamps, cut per alert
-        t0 = time.perf_counter()
-        pairs = list(iter_alert_samples(data_dir))
-        host_s = time.perf_counter() - t0
-        n = len(pairs)
-        lengths = np.asarray([i["n_photometry"] for i, _ in pairs])
-        fill = {b: int(((lengths <= b) & (lengths > lo)).sum())
-                for lo, b in zip((0,) + LENGTH_BUCKETS[:-1], LENGTH_BUCKETS)}
-        fill[LENGTH_BUCKETS[-1]] += int((lengths > LENGTH_BUCKETS[-1]).sum())  # truncated to 257
-        n_with_spec = sum(i["has_spectrum"] for i, _ in pairs)
-        log(f"raw-alert host ms: {host_s * 1e3:.1f} ms to read and decode {n} alerts from "
-            f"{n_objects} directories ({n / host_s:.1f} alerts/s, one host thread) [{card}]")
-        log(f"  alerts by length bucket {fill}; {n_with_spec} with a spectrum")
-        split = host_split(data_dir)
-        log(f"  host split, ms over the corpus: {', '.join(f'{k} {v:.1f}' for k, v in split.items())} "
-            f"[{card}]")
-        if n < 0.9 * n_objects * alerts_per_object or min(fill.values()) == 0:
-            raise SystemExit(f"the raw corpus gave {n} alerts, length buckets {fill}")
+    # the host alone: read CSVs and alerts, decode stamps, cut per alert
+    t0 = time.perf_counter()
+    pairs = list(iter_alert_samples(data_dir))
+    host_s = time.perf_counter() - t0
+    n = len(pairs)
+    lengths = np.asarray([i["n_photometry"] for i, _ in pairs])
+    fill = {b: int(((lengths <= b) & (lengths > lo)).sum())
+            for lo, b in zip((0,) + LENGTH_BUCKETS[:-1], LENGTH_BUCKETS)}
+    fill[LENGTH_BUCKETS[-1]] += int((lengths > LENGTH_BUCKETS[-1]).sum())  # truncated to 257
+    n_with_spec = sum(i["has_spectrum"] for i, _ in pairs)
+    log(f"raw-alert host ms: {host_s * 1e3:.1f} ms to read and decode {n} alerts from "
+        f"{n_objects} directories ({n / host_s:.1f} alerts/s; one host thread, but the stamps "
+        f"decoded on every core) [{card}]")
+    log(f"  alerts by length bucket {fill}; {n_with_spec} with a spectrum")
+    split = host_split(data_dir)
+    read_ms = sum(split[k] for k in ("alerts_npy", "stamps", "photometry_csv", "spectra_csv"))
+    log(f"  host split, ms over the corpus: {', '.join(f'{k} {v:.1f}' for k, v in split.items())} "
+        f"[{card}]")
+    log(f"  host reading {read_ms:.1f} ms, the stamps (native decoder, every core) "
+        f"{split['stamps'] / read_ms * 100:.1f}% of it; the same stamps on one host thread: "
+        f"native {split['stamps_native_one_thread']:.1f} ms, Python decode_stamp "
+        f"{split['stamps_python']:.1f} ms [{card}]")
+    if n < 0.9 * n_objects * alerts_per_object or min(fill.values()) == 0:
+        raise SystemExit(f"the raw corpus gave {n} alerts, length buckets {fill}")
 
-        # the counted run, from the directories (bf16, binned)
-        counters = zero_counters()
-        walked = merge_scan.walked_rows(dev) if on_card else torch.zeros(1)
-        walked.zero_()
-        sync()
-        summary = serve_alert_stream(model, iter_alert_samples(data_dir), batch_size=batch_size,
-                                     device=dev)
-        launches = _kernel_launches(counters)
-        probs = np.stack([r["probs"] for r in summary["results"]])
-        sums = probs.sum(axis=1)
-        if probs.shape != (n, model.num_classes) or not np.isfinite(probs).all() \
-                or float(np.abs(sums - 1).max()) > 1e-3:
-            raise SystemExit(f"raw serving output not finite rows of ({n}, {model.num_classes}) "
-                             "summing to 1 within 1e-3")
-        if [(r["object_id"], r["jd"]) for r in summary["results"]] != \
-                [(i["object_id"], i["jd"]) for i, _ in pairs]:
-            raise SystemExit("raw serving results are not in arrival order")
-        log(f"raw-alert serving bf16 from the directories: {n} alerts in {summary['seconds']:.4f} s, "
-            f"{summary['alerts_per_sec']:.1f} alerts/s, host reading and decoding included "
-            f"(batch_size={batch_size}, binned) [{card}]; max |sum-1| {float(np.abs(sums - 1).max()):.3g}")
-        log(f"launches in that run: K1 {launches['merge_scan']}, K2 {launches['masked_attention']}, "
-            f"K3f {launches['ln_gelu_fwd']} [{card}] (all: {launches})")
-        log(f"K1 rows walked with the recurrence in that run: {int(walked.item())} (0 required)")
-        if on_card:
-            _require_serving_launches(launches, walked, "the raw-alert serving path")
+    # the counted run, from the directories (bf16, binned)
+    counters = zero_counters()
+    walked = merge_scan.walked_rows(dev) if on_card else torch.zeros(1)
+    walked.zero_()
+    sync()
+    summary = serve_alert_stream(model, iter_alert_samples(data_dir), batch_size=batch_size,
+                                 device=dev)
+    launches = _kernel_launches(counters)
+    probs = np.stack([r["probs"] for r in summary["results"]])
+    sums = probs.sum(axis=1)
+    if probs.shape != (n, model.num_classes) or not np.isfinite(probs).all() \
+            or float(np.abs(sums - 1).max()) > 1e-3:
+        raise SystemExit(f"raw serving output not finite rows of ({n}, {model.num_classes}) "
+                         "summing to 1 within 1e-3")
+    if [(r["object_id"], r["jd"]) for r in summary["results"]] != \
+            [(i["object_id"], i["jd"]) for i, _ in pairs]:
+        raise SystemExit("raw serving results are not in arrival order")
+    log(f"raw-alert serving bf16 from the directories: {n} alerts in {summary['seconds']:.4f} s, "
+        f"{summary['alerts_per_sec']:.1f} alerts/s, host reading and decoding included "
+        f"(batch_size={batch_size}, binned) [{card}]; max |sum-1| {float(np.abs(sums - 1).max()):.3g}")
+    log(f"launches in that run: K1 {launches['merge_scan']}, K2 {launches['masked_attention']}, "
+        f"K3f {launches['ln_gelu_fwd']} [{card}] (all: {launches})")
+    log(f"K1 rows walked with the recurrence in that run: {int(walked.item())} (0 required)")
+    if on_card:
+        _require_serving_launches(launches, walked, "the raw-alert serving path")
 
-        # the same alerts from the samples already read: the device side alone
-        sync()
-        again = serve_alert_stream(model, iter(pairs), batch_size=batch_size, device=dev)
-        log(f"  the same {n} alerts from samples already in memory: {again['seconds']:.4f} s, "
-            f"{again['alerts_per_sec']:.1f} alerts/s; host read+decode is "
-            f"{host_s / (host_s + again['seconds']) * 100:.1f}% of read+serve [{card}]")
-        got = np.stack([r["probs"] for r in again["results"]])
-        if not np.allclose(got, probs, rtol=0, atol=2e-2):
-            raise SystemExit("serving from directories and from samples disagree beyond bf16")
+    # the same alerts from the samples already read: the device side alone
+    sync()
+    again = serve_alert_stream(model, iter(pairs), batch_size=batch_size, device=dev)
+    log(f"  the same {n} alerts from samples already in memory: {again['seconds']:.4f} s, "
+        f"{again['alerts_per_sec']:.1f} alerts/s; host read+decode is "
+        f"{host_s / (host_s + again['seconds']) * 100:.1f}% of read+serve [{card}]")
+    got = np.stack([r["probs"] for r in again["results"]])
+    if not np.allclose(got, probs, rtol=0, atol=2e-2):
+        raise SystemExit("serving from directories and from samples disagree beyond bf16")
     rate = summary["alerts_per_sec"]
     del summary, again
 
@@ -1441,7 +1471,7 @@ def check_raw_serving(model, model32, card: str, n_objects: int = 128, alerts_pe
             raise SystemExit(f"raw-alert f32 serving disagrees: {bad}")
 
         # the overlapped feeder on records carrying stamps, against the serial router
-        records = _stamp_records(sub)
+        records = _stamp_records(sub, data_dir)
         batches = [records[i:i + 64] for i in range(0, len(records), 64)]
         router = FusedSpectraStream(model32, device=dev)
         want = [router(assemble_samples(rb), length_buckets=LENGTH_BUCKETS) for rb in batches]
@@ -1462,7 +1492,7 @@ def check_raw_serving(model, model32, card: str, n_objects: int = 128, alerts_pe
     if on_card:
         torch.cuda.empty_cache()
     return {"launches": launches, "alerts": n, "alerts_per_s": rate, "host_ms": host_s * 1e3,
-            "host_split_ms": split, "checks": checks}
+            "host_split_ms": split, "checks": checks, "data_dir": data_dir, "pairs": pairs}
 
 
 
@@ -1733,8 +1763,8 @@ def _same_outputs(a: Path, b: Path) -> list:
 EVAL_KERNELS = {"masked_attention": 4, "ln_gelu_fwd": 5}
 
 
-def check_workflow(card: str, n_objects: int = 96, epochs: int = 3, batch_size: int = 32,
-                   device="cuda", model_overrides: dict | None = None) -> dict:
+def check_workflow(card: str, tmp: Path, n_objects: int = 96, epochs: int = 3,
+                   batch_size: int = 32, device="cuda", model_overrides: dict | None = None) -> dict:
     """Phase 6: the user's workflow through its own entry points, at the
     published widths. A raw corpus -> ``preprocess_data`` (serially and in
     a pool of 4, the same files) -> ``AppleCiderRuntime("configs/fusion.toml")``
@@ -1744,9 +1774,9 @@ def check_workflow(card: str, n_objects: int = 96, epochs: int = 3, batch_size: 
     run directly on a model loaded from ``best.pt``) -> the
     ``applecider-serve-torch`` CLI as a subprocess -> ``warmup`` twice.
     ``device`` and ``model_overrides`` (e.g. small widths) are for a dry run
-    on the CPU."""
+    on the CPU. Everything is written under ``tmp``, which the caller owns;
+    the result's ``runtime`` is the trained runtime (phase 9 exports it)."""
     import subprocess
-    import tempfile
 
     import torch
 
@@ -1760,165 +1790,164 @@ def check_workflow(card: str, n_objects: int = 96, epochs: int = 3, batch_size: 
     from applecider_tpu_torch.train.runtime import AppleCiderRuntime
 
     result: dict = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_workflow_") as tmp:
-        tmp = Path(tmp)
+    t0 = time.perf_counter()
+    raw, labels = make_corpus(tmp, n_objects=n_objects, seed=11, learnable=True,
+                              n_photometry=(20, 100), spectrum_frac=0.3, n_alerts=8)
+    log(f"workflow corpus: {n_objects} object directories (learnable, 20-100 points, 8 alerts, "
+        f"30% with a spectrum) written in {time.perf_counter() - t0:.1f} s")
+
+    # 1. preprocessing, serial and in a spawn pool of 4
+    secs = {}
+    for workers in (0, 4):
         t0 = time.perf_counter()
-        raw, labels = make_corpus(tmp, n_objects=n_objects, seed=11, learnable=True,
-                                  n_photometry=(20, 100), spectrum_frac=0.3, n_alerts=8)
-        log(f"workflow corpus: {n_objects} object directories (learnable, 20-100 points, 8 alerts, "
-            f"30% with a spectrum) written in {time.perf_counter() - t0:.1f} s")
+        preprocess_data(str(raw), str(labels), str(tmp / f"out{workers}"), num_workers=workers)
+        secs[workers] = time.perf_counter() - t0
+    out = tmp / "out0"
+    built = read_csv(out / "built_all.csv")
+    differ = _same_outputs(out, tmp / "out4")
+    n_split = {s: len(read_csv(out / f"manifest_{s}.csv")) for s in ("train", "val", "test")}
+    log(f"preprocess_data: {len(built)} of {n_objects} objects built, splits {n_split}; "
+        f"serial {secs[0]:.2f} s ({n_objects / secs[0]:.1f} objects/s), 4 workers "
+        f"{secs[4]:.2f} s ({n_objects / secs[4]:.1f} objects/s), host [{card}]; "
+        f"files differing between the two: {differ}")
+    if len(built) != n_objects or differ:
+        raise SystemExit(f"preprocessing built {len(built)} of {n_objects} objects, or the "
+                         f"serial and pooled runs differ: {differ}")
+    result["preprocess_s"] = secs
 
-        # 1. preprocessing, serial and in a spawn pool of 4
-        secs = {}
-        for workers in (0, 4):
-            t0 = time.perf_counter()
-            preprocess_data(str(raw), str(labels), str(tmp / f"out{workers}"), num_workers=workers)
-            secs[workers] = time.perf_counter() - t0
-        out = tmp / "out0"
-        built = read_csv(out / "built_all.csv")
-        differ = _same_outputs(out, tmp / "out4")
-        n_split = {s: len(read_csv(out / f"manifest_{s}.csv")) for s in ("train", "val", "test")}
-        log(f"preprocess_data: {len(built)} of {n_objects} objects built, splits {n_split}; "
-            f"serial {secs[0]:.2f} s ({n_objects / secs[0]:.1f} objects/s), 4 workers "
-            f"{secs[4]:.2f} s ({n_objects / secs[4]:.1f} objects/s), host [{card}]; "
-            f"files differing between the two: {differ}")
-        if len(built) != n_objects or differ:
-            raise SystemExit(f"preprocessing built {len(built)} of {n_objects} objects, or the "
-                             f"serial and pooled runs differ: {differ}")
-        result["preprocess_s"] = secs
+    # 2. training through the runtime, bf16, dropout live
+    section = 'applecider_tpu.datasets.fusion_dataset.FusionDataset'
+    overrides = {"train": {"epochs": epochs}, "data_loader": {"batch_size": batch_size},
+                 "data_set": {section: {"manifest_path": str(out / "manifest_train.csv"),
+                                        "stats_event_path": str(out / "photo_stats.npz")}},
+                 **(model_overrides or {})}
+    workdir = tmp / "results"
+    rt = AppleCiderRuntime(REPO / "configs" / "fusion.toml", overrides, workdir=workdir,
+                           device=device)
+    dev = rt.device
+    on_card = dev.type == "cuda"
 
-        # 2. training through the runtime, bf16, dropout live
-        section = 'applecider_tpu.datasets.fusion_dataset.FusionDataset'
-        overrides = {"train": {"epochs": epochs}, "data_loader": {"batch_size": batch_size},
-                     "data_set": {section: {"manifest_path": str(out / "manifest_train.csv"),
-                                            "stats_event_path": str(out / "photo_stats.npz")}},
-                     **(model_overrides or {})}
-        workdir = tmp / "results"
-        rt = AppleCiderRuntime(REPO / "configs" / "fusion.toml", overrides, workdir=workdir,
-                               device=device)
-        dev = rt.device
-        on_card = dev.type == "cuda"
-
-        def sync():
-            if on_card:
-                torch.cuda.synchronize()
-
-        rt.prepare()
-        n_train = len(rt.datasets["train"])
-        val_batches = n_train // batch_size * epochs  # validate binds the same manifest
-        counters = zero_counters()
-        t0 = time.perf_counter()
-        trained = rt.train()
-        sync()
-        wall = time.perf_counter() - t0
-        launches = _kernel_launches(counters)
-        run_dir = trained["run_dir"]
-        history = trained["history"]
-        steps = history[-1]["steps"]
-        records = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
-        ckpts = {t: (run_dir / "checkpoints" / f"{t}.pt").exists() for t in ("best", "last")}
-        init = rt._task().module.state_dict()
-        last = torch.load(run_dir / "checkpoints" / "last.pt", map_location=dev,
-                          weights_only=True)["params"]
-        moved = sum(int(not torch.equal(init[k], last[k])) for k in init)
-        log(f"runtime train bf16, full widths: {n_train} training objects, {steps} steps of "
-            f"{batch_size} over {epochs} epochs in {wall:.2f} s (validation and checkpoints "
-            f"included); epoch seconds {[round(r['epoch_seconds'], 3) for r in records]}; "
-            f"train_loss {[round(r['train_loss'], 4) for r in records]}; val_accuracy "
-            f"{[round(r['val_accuracy'], 4) for r in records]} [{card}]")
-        log(f"  {moved} of {len(init)} parameter tensors moved; checkpoints {ckpts}; "
-            f"launches in that run: {launches}")
-        want = {n: per * steps for n, per in TRAINING_KERNELS.items()}
-        want["ln_gelu_fwd"] += EVAL_KERNELS["ln_gelu_fwd"] * val_batches
-        want["masked_attention"] = EVAL_KERNELS["masked_attention"] * val_batches
-        wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
-        stray = [n for n in launches if n not in want and launches[n]]
-        if not all(np.isfinite(r["train_loss"]) for r in history) or moved == 0 \
-                or not all(ckpts.values()) or steps != n_train // batch_size * epochs:
-            raise SystemExit("runtime training: loss not finite, no parameter moved, a "
-                             "checkpoint missing or a step short")
-        if on_card and (wrong or stray):
-            raise SystemExit(f"runtime training launches (got, expected): {wrong}; stray {stray}")
-        result["train_launches"] = launches
-
-        # 3. inference from the checkpoint, then f32 kernel path vs plain path
-        counters = zero_counters()
-        preds = rt.infer()
-        infer_launches = _kernel_launches(counters)
-        log(f"runtime infer bf16: predictions {preds.shape}, finite {bool(np.isfinite(preds).all())}; "
-            f"launches {infer_launches}")
-        if preds.ndim != 2 or preds.shape[1] != 5 or not len(preds) or not np.isfinite(preds).all():
-            raise SystemExit("runtime infer did not return finite (n, 5) predictions")
-        rt.set_config("train.compute_dtype", "float32")
-        with no_tf32():
-            got, plain = rt.infer(), rt.infer(kernels=False)
-        rt.set_config("train.compute_dtype", "bfloat16")
-        err = float(np.abs(got - plain).max())
-        log(f"runtime infer f32 (TF32 off) kernel path vs plain path on best.pt: max|dlogit| "
-            f"{err:.3g} (<= 1e-4 required)")
-        if not err <= 1e-4:
-            raise SystemExit("runtime infer: kernel path disagrees with the plain path")
-        result["infer_err"] = err
-
-        # 4. serving every alert of the raw directories with the trained weights
-        n_alerts = sum(1 for _ in iter_alert_samples(raw))
-        counters = zero_counters()
-        walked = merge_scan.walked_rows(dev) if on_card else torch.zeros(1)
-        walked.zero_()
-        served = rt.serve(raw_path=raw)
-        serve_launches = _kernel_launches(counters)
-        log(f"runtime serve bf16: {served['n_alerts']} of {n_alerts} alerts in "
-            f"{served['seconds']:.4f} s, {served['alerts_per_sec']:.1f} alerts/s, host reading "
-            f"included [{card}]; launches {serve_launches}; K1 rows walked "
-            f"{int(walked.item())} (0 required)")
-        if served["n_alerts"] != n_alerts:
-            raise SystemExit("runtime serve did not cover every alert")
+    def sync():
         if on_card:
-            _require_serving_launches(serve_launches, walked, "runtime serve")
-        model = build_fusion_model(rt.config, device=dev)
-        model.load_state_dict(torch.load(run_dir / "checkpoints" / "best.pt", map_location=dev,
-                                         weights_only=True)["params"])
-        mean, std = load_photo_stats(out / "photo_stats.npz")
-        sec = rt.config.section("serve")
-        direct = serve_alert_stream(model, iter_alert_samples(raw), batch_size=sec["batch_size"],
-                                    length_buckets=tuple(sec["length_buckets"]), stats_mean=mean,
-                                    stats_std=std, horizon_days=100.0, device=dev)
-        err = float(np.abs(np.stack([r["probs"] for r in served["results"]])
-                           - np.stack([r["probs"] for r in direct["results"]])).max())
-        log(f"  runtime serve vs serve_alert_stream on best.pt directly: max|dprob| {err:.3g} "
-            f"(<= 1e-6 required)")
-        if not err <= 1e-6:
-            raise SystemExit("runtime serve disagrees with serve_alert_stream on the same weights")
-        result.update(serve_launches=serve_launches, alerts_per_s=served["alerts_per_sec"])
-        del model
+            torch.cuda.synchronize()
 
-        # 5. the serving CLI in a process of its own, on the run's config
-        run_toml = tmp / "run.toml"
-        run_toml.write_text(_toml(rt.config))
-        t0 = time.perf_counter()
-        cli = subprocess.run([sys.executable, "-m", "applecider_tpu_torch.infer.cli", "--config",
-                              str(run_toml), "--raw_path", str(raw), "--workdir", str(workdir),
-                              "--device", dev.type],
-                             cwd=REPO, capture_output=True, text=True, timeout=600)
-        cli_out = json.loads(cli.stdout.strip().splitlines()[-1]) if cli.returncode == 0 else {}
-        log(f"applecider-serve-torch subprocess: exit {cli.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s (process start, model load and serving): {cli_out}")
-        if cli.returncode != 0 or cli_out.get("n_alerts") != n_alerts:
-            raise SystemExit(f"the serving CLI failed or served another count:\n{cli.stderr[-3000:]}")
+    rt.prepare()
+    n_train = len(rt.datasets["train"])
+    val_batches = n_train // batch_size * epochs  # validate binds the same manifest
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    trained = rt.train()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _kernel_launches(counters)
+    run_dir = trained["run_dir"]
+    history = trained["history"]
+    steps = history[-1]["steps"]
+    records = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    ckpts = {t: (run_dir / "checkpoints" / f"{t}.pt").exists() for t in ("best", "last")}
+    init = rt._task().module.state_dict()
+    last = torch.load(run_dir / "checkpoints" / "last.pt", map_location=dev,
+                      weights_only=True)["params"]
+    moved = sum(int(not torch.equal(init[k], last[k])) for k in init)
+    log(f"runtime train bf16, full widths: {n_train} training objects, {steps} steps of "
+        f"{batch_size} over {epochs} epochs in {wall:.2f} s (validation and checkpoints "
+        f"included); epoch seconds {[round(r['epoch_seconds'], 3) for r in records]}; "
+        f"train_loss {[round(r['train_loss'], 4) for r in records]}; val_accuracy "
+        f"{[round(r['val_accuracy'], 4) for r in records]} [{card}]")
+    log(f"  {moved} of {len(init)} parameter tensors moved; checkpoints {ckpts}; "
+        f"launches in that run: {launches}")
+    want = {n: per * steps for n, per in TRAINING_KERNELS.items()}
+    want["ln_gelu_fwd"] += EVAL_KERNELS["ln_gelu_fwd"] * val_batches
+    want["masked_attention"] = EVAL_KERNELS["masked_attention"] * val_batches
+    wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    stray = [n for n in launches if n not in want and launches[n]]
+    if not all(np.isfinite(r["train_loss"]) for r in history) or moved == 0 \
+            or not all(ckpts.values()) or steps != n_train // batch_size * epochs:
+        raise SystemExit("runtime training: loss not finite, no parameter moved, a "
+                         "checkpoint missing or a step short")
+    if on_card and (wrong or stray):
+        raise SystemExit(f"runtime training launches (got, expected): {wrong}; stray {stray}")
+    result["train_launches"] = launches
 
-        # 6. warmup, twice
-        totals = []
-        for which in ("first", "second"):
-            w = rt.warmup()
-            totals.append(w["total_seconds"])
-            per = [p["seconds"] for p in w["programs"]]
-            log(f"warmup ({which} in this process): {len(w['programs'])} shapes (length buckets x "
-                f"spectra buckets, batch {w['programs'][0]['batch']}) in {w['total_seconds']:.2f} s, "
-                f"kernel build check {w['build_seconds']:.2f} s, per shape {min(per):.3f}-"
-                f"{max(per):.3f} s [{card}]")
-        result["warmup_s"] = totals
+    # 3. inference from the checkpoint, then f32 kernel path vs plain path
+    counters = zero_counters()
+    preds = rt.infer()
+    infer_launches = _kernel_launches(counters)
+    log(f"runtime infer bf16: predictions {preds.shape}, finite {bool(np.isfinite(preds).all())}; "
+        f"launches {infer_launches}")
+    if preds.ndim != 2 or preds.shape[1] != 5 or not len(preds) or not np.isfinite(preds).all():
+        raise SystemExit("runtime infer did not return finite (n, 5) predictions")
+    rt.set_config("train.compute_dtype", "float32")
+    with no_tf32():
+        got, plain = rt.infer(), rt.infer(kernels=False)
+    rt.set_config("train.compute_dtype", "bfloat16")
+    err = float(np.abs(got - plain).max())
+    log(f"runtime infer f32 (TF32 off) kernel path vs plain path on best.pt: max|dlogit| "
+        f"{err:.3g} (<= 1e-4 required)")
+    if not err <= 1e-4:
+        raise SystemExit("runtime infer: kernel path disagrees with the plain path")
+    result["infer_err"] = err
+
+    # 4. serving every alert of the raw directories with the trained weights
+    n_alerts = sum(1 for _ in iter_alert_samples(raw))
+    counters = zero_counters()
+    walked = merge_scan.walked_rows(dev) if on_card else torch.zeros(1)
+    walked.zero_()
+    served = rt.serve(raw_path=raw)
+    serve_launches = _kernel_launches(counters)
+    log(f"runtime serve bf16: {served['n_alerts']} of {n_alerts} alerts in "
+        f"{served['seconds']:.4f} s, {served['alerts_per_sec']:.1f} alerts/s, host reading "
+        f"included [{card}]; launches {serve_launches}; K1 rows walked "
+        f"{int(walked.item())} (0 required)")
+    if served["n_alerts"] != n_alerts:
+        raise SystemExit("runtime serve did not cover every alert")
+    if on_card:
+        _require_serving_launches(serve_launches, walked, "runtime serve")
+    model = build_fusion_model(rt.config, device=dev)
+    model.load_state_dict(torch.load(run_dir / "checkpoints" / "best.pt", map_location=dev,
+                                     weights_only=True)["params"])
+    mean, std = load_photo_stats(out / "photo_stats.npz")
+    sec = rt.config.section("serve")
+    direct = serve_alert_stream(model, iter_alert_samples(raw), batch_size=sec["batch_size"],
+                                length_buckets=tuple(sec["length_buckets"]), stats_mean=mean,
+                                stats_std=std, horizon_days=100.0, device=dev)
+    err = float(np.abs(np.stack([r["probs"] for r in served["results"]])
+                       - np.stack([r["probs"] for r in direct["results"]])).max())
+    log(f"  runtime serve vs serve_alert_stream on best.pt directly: max|dprob| {err:.3g} "
+        f"(<= 1e-6 required)")
+    if not err <= 1e-6:
+        raise SystemExit("runtime serve disagrees with serve_alert_stream on the same weights")
+    result.update(serve_launches=serve_launches, alerts_per_s=served["alerts_per_sec"])
+    del model
+
+    # 5. the serving CLI in a process of its own, on the run's config
+    run_toml = tmp / "run.toml"
+    run_toml.write_text(_toml(rt.config))
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "applecider_tpu_torch.infer.cli", "--config",
+                          str(run_toml), "--raw_path", str(raw), "--workdir", str(workdir),
+                          "--device", dev.type],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_out = json.loads(cli.stdout.strip().splitlines()[-1]) if cli.returncode == 0 else {}
+    log(f"applecider-serve-torch subprocess: exit {cli.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s (process start, model load and serving): {cli_out}")
+    if cli.returncode != 0 or cli_out.get("n_alerts") != n_alerts:
+        raise SystemExit(f"the serving CLI failed or served another count:\n{cli.stderr[-3000:]}")
+
+    # 6. warmup, twice
+    totals = []
+    for which in ("first", "second"):
+        w = rt.warmup()
+        totals.append(w["total_seconds"])
+        per = [p["seconds"] for p in w["programs"]]
+        log(f"warmup ({which} in this process): {len(w['programs'])} shapes (length buckets x "
+            f"spectra buckets, batch {w['programs'][0]['batch']}) in {w['total_seconds']:.2f} s, "
+            f"kernel build check {w['build_seconds']:.2f} s, per shape {min(per):.3f}-"
+            f"{max(per):.3f} s [{card}]")
+    result["warmup_s"] = totals
     if on_card:
         torch.cuda.empty_cache()
+    result["runtime"] = rt
     return result
 
 
@@ -2640,23 +2669,271 @@ def check_single_families(card: str, device="cuda", model_overrides: dict | None
                                   for n in kernel_counters()}}
 
 
+# ------------------------------------------------------------- phase 9
+OP_NAMES = {"merge_scan": "seg_ids", "masked_attention": "masked_attention",
+            "ln_gelu_fwd": "ln_gelu_fwd"}
+
+
+def _program_ops(path: Path) -> dict:
+    """How many nodes of a saved program's graph call each kernel's op,
+    read from the graph the archive serialises (``models/model.json``: the
+    nodes ``torch.export.load`` rebuilds, without its seconds of rebuilding
+    them)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        name = next(n for n in z.namelist() if n.endswith("models/model.json"))
+        nodes = json.loads(z.read(name))["graph_module"]["graph"]["nodes"]
+    targets = [n["target"] for n in nodes]
+    return {k: targets.count(f"torch.ops.applecider_torch.{op}.default")
+            for k, op in OP_NAMES.items()}
+
+
+def _program_kernels(cfg, serving: bool = True) -> dict:
+    """Launches per call of a program of the fusion model of ``cfg``: K1
+    once (serving programs only), K2 in each attention layer, K3f in each
+    SpectraNet block (4 and 5 at the published widths)."""
+    n_layers = int(cfg.get_path("model.BaselineCLS.n_layers"))
+    n_blocks = sum(cfg.get_path("model.SpectraNet.depths"))
+    return {"merge_scan": int(serving), "masked_attention": n_layers, "ln_gelu_fwd": n_blocks}
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _require_program_launches(launches: dict, calls: int, per_call: dict, what: str) -> None:
+    """Each kernel of ``per_call`` launched that many times a program call,
+    and no other kernel."""
+    want = {k: v * calls for k, v in per_call.items()}
+    got = {k: launches[k] for k in want}
+    stray = [k for k in launches if k not in want and launches[k]]
+    if got != want or stray:
+        raise SystemExit(f"{what}: launches {got}, expected {want} ({calls} calls); stray {stray}")
+
+
+def check_native_decoder(card: str, model, model32, raw: dict) -> dict:
+    """Phase 9a: the native decoder on phase 3b's corpus, bit for bit
+    against ``decode_stamp``, then ``OverlappedServingFeeder`` in thread
+    mode with 1, 2 and 4 workers on records carrying the corpus' stamps,
+    against the serial router: in f32 with TF32 off within 1e-6, as phase
+    3b holds it, and in bf16, the serving dtype, within 1e-3 (the merge's
+    ``scatter_add_`` sums in the order its atomics land: ~3e-8 apart in
+    f32, which bf16 rounding turns into up to ~2e-4)."""
+    from applecider_tpu_torch import native
+    from applecider_tpu_torch.infer.feeder import OverlappedServingFeeder, assemble_samples
+    from applecider_tpu_torch.infer.serve import CUTOUT_KEYS
+    from applecider_tpu_torch.infer.stream import LENGTH_BUCKETS, FusedSpectraStream
+    from applecider_tpu_torch.preprocessing.fitsio import decode_stamp
+
+    data_dir, pairs = raw["data_dir"], raw["pairs"]
+    dev = next(model.parameters()).device
+    n_stamps, differ = 0, []
+    for obj in sorted(p.name for p in data_dir.iterdir()):
+        blobs = [a[k]["stampData"] for a in np.load(data_dir / obj / "alerts.npy", allow_pickle=True)
+                 for k in CUTOUT_KEYS]
+        images, ok = native.decode_stamps_batch(blobs)
+        for i, blob in enumerate(blobs):
+            ref = decode_stamp(blob)
+            good = ref is not None and ref.shape == (63, 63)
+            if good != bool(ok[i]) or (good and images[i].tobytes() != ref.tobytes()):
+                differ.append((obj, i))
+        n_stamps += len(blobs)
+    log(f"native decoder ({native.build_variant()} variant): {n_stamps} stamps of the raw corpus "
+        f"decoded, {len(differ)} differing from decode_stamp bit for bit (0 required)")
+    if differ:
+        raise SystemExit(f"the native decoder differs from decode_stamp: {differ[:10]}")
+    per_object = [[a[k]["stampData"] for a in np.load(data_dir / o / "alerts.npy", allow_pickle=True)
+                   for k in CUTOUT_KEYS] for o in sorted(p.name for p in data_dir.iterdir())]
+    decode_ms = {}
+    for n_threads in (1, 2, 4, 8, 0):
+        t0 = time.perf_counter()
+        for blobs in per_object:
+            native.decode_stamps_batch(blobs, n_threads=n_threads)
+        decode_ms[n_threads] = (time.perf_counter() - t0) * 1e3
+    log(f"native decode of the corpus' stamps, one call an object, ms by n_threads (0: the "
+        f"{len(os.sched_getaffinity(0))} cores this process may use; os.cpu_count() "
+        f"{os.cpu_count()}): {decode_ms} [{card}]")
+
+    records = _stamp_records(pairs, data_dir)
+    batches = [records[i:i + 512] for i in range(0, len(records), 512)]
+    rates = {}
+    for what, m, limit in (("f32", model32, 1e-6), ("bf16", model, 1e-3)):
+        router = FusedSpectraStream(m, device=dev)
+        with no_tf32() if what == "f32" else contextlib.nullcontext():
+            _sync(dev)
+            t0 = time.perf_counter()
+            want = [router(assemble_samples(rb), length_buckets=LENGTH_BUCKETS) for rb in batches]
+            rates[what] = {"serial": len(records) / (time.perf_counter() - t0)}
+            for workers in (1, 2, 4):
+                feeder = OverlappedServingFeeder(router, n_workers=workers, mode="thread",
+                                                 length_buckets=LENGTH_BUCKETS)
+                _sync(dev)
+                t0 = time.perf_counter()
+                got = list(feeder.serve(iter(batches)))
+                rates[what][workers] = len(records) / (time.perf_counter() - t0)
+                err = max(float(np.abs(g - w).max()) for g, w in zip(got, want)) \
+                    if len(got) == len(want) else float("inf")
+                log(f"OverlappedServingFeeder thread mode {what}, {workers} workers: {len(records)} "
+                    f"records with stamps in {len(batches)} batches of 512, "
+                    f"{rates[what][workers]:.1f} alerts/s (the serial router "
+                    f"{rates[what]['serial']:.1f}); max|dprob| vs serial {err:.3g} (<= {limit:g} "
+                    f"required) [{card}]")
+                if not err <= limit:
+                    raise SystemExit(f"OverlappedServingFeeder ({what}, {workers} workers) "
+                                     "disagrees with the serial router")
+    return {"variant": native.build_variant(), "stamps": n_stamps, "decode_ms": decode_ms,
+            "feeder_alerts_per_s": rates}
+
+
+def check_export_serving(card: str, model, model32, raw: dict, tmp: Path,
+                         model_overrides: dict | None = None) -> dict:
+    """Phase 9b: ``export_serving`` of phase 3's bf16 weights at every
+    serving length bucket (each symbolic in batch, each graph holding K1
+    x1, K2 x4, K3f x5), then ``engine_serving`` over phase 3b's corpus
+    against ``serve_alert_stream`` on the same weights (bf16, <= 1e-3), in
+    one call with it for alerts/s, the launch counters 1/4/5 a program
+    call; and one f32 program (P = 257, TF32 off) against the live f32
+    pipeline (<= 1e-5). ``model_overrides`` (small widths) is for a dry run
+    on the CPU."""
+    from applecider_tpu_torch.infer.serve import iter_alert_samples, serve_alert_stream
+    from applecider_tpu_torch.infer.stream import LENGTH_BUCKETS
+    from applecider_tpu_torch.train.runtime import AppleCiderRuntime
+
+    dev = next(model.parameters()).device
+    on_card = dev.type == "cuda"
+    data_dir, n = raw["data_dir"], len(raw["pairs"])
+
+    def runtime(dtype):
+        overrides = copy.deepcopy(model_overrides or {})
+        overrides.setdefault("model", {})["name"] = "AppleCider"
+        overrides["train"] = {"compute_dtype": dtype}
+        return AppleCiderRuntime(overrides=overrides, workdir=tmp / "results", device=dev)
+
+    rt = runtime("bfloat16")
+    per_call = _program_kernels(rt.config)
+    out = rt.export_serving(tmp / "serving_bf16", length_buckets=LENGTH_BUCKETS,
+                            params=model.state_dict())
+    meta = json.loads((out / "serving_meta.json").read_text())
+    for P in LENGTH_BUCKETS:
+        bmeta = meta["buckets"][str(P)]
+        ops = _program_ops(out / f"serving_P{P}.pt2")
+        log(f"export_serving bf16 P={P}: {bmeta['seconds']:.1f} s, symbolic batch "
+            f"{bmeta['symbolic_batch']}, {(out / f'serving_P{P}.pt2').stat().st_size / 2**20:.1f} "
+            f"MiB; custom-op nodes {ops} [{card}]")
+        if not bmeta["symbolic_batch"]:
+            raise SystemExit(f"bucket {P} fell back to a concrete batch: {bmeta['symbolic_error']}")
+        if ops != per_call:
+            raise SystemExit(f"the P={P} program holds {ops}, expected {per_call}")
+
+    batch_size = 512
+    _sync(dev)
+    live = serve_alert_stream(model, iter_alert_samples(data_dir), batch_size=batch_size, device=dev)
+    counters = zero_counters()
+    engine = rt.engine_serving(out, raw_path=data_dir, batch_size=batch_size)
+    launches = _kernel_launches(counters)
+    calls = -(-n // batch_size)
+    err = float(np.abs(np.stack([r["probs"] for r in engine["results"]])
+                       - np.stack([r["probs"] for r in live["results"]])).max())
+    log(f"engine_serving bf16 over the raw corpus: {engine['n_alerts']} alerts in "
+        f"{engine['seconds']:.4f} s, {engine['alerts_per_sec']:.1f} alerts/s; serve_alert_stream "
+        f"in the same call {live['alerts_per_sec']:.1f} alerts/s (both from the directories, "
+        f"batch {batch_size}) [{card}]; max|dprob| {err:.3g} (<= 1e-3 required); launches "
+        f"{launches} in {calls} program calls")
+    if engine["n_alerts"] != n or [(r["object_id"], r["jd"]) for r in engine["results"]] != \
+            [(r["object_id"], r["jd"]) for r in live["results"]] or not err <= 1e-3:
+        raise SystemExit("engine_serving disagrees with serve_alert_stream in bf16")
+    if on_card:
+        _require_program_launches(launches, calls, per_call, "engine_serving")
+
+    out32 = runtime("float32").export_serving(tmp / "serving_f32", length_buckets=(257,),
+                                              params=model32.state_dict())
+    with no_tf32():
+        live32 = serve_alert_stream(model32, iter_alert_samples(data_dir), batch_size=batch_size,
+                                    length_buckets=(257,), device=dev)
+        engine32 = runtime("float32").engine_serving(out32, raw_path=data_dir,
+                                                      batch_size=batch_size)
+    err32 = float(np.abs(np.stack([r["probs"] for r in engine32["results"]])
+                         - np.stack([r["probs"] for r in live32["results"]])).max())
+    seconds32 = json.loads((out32 / "serving_meta.json").read_text())["buckets"]["257"]["seconds"]
+    log(f"export_serving f32 P=257 in {seconds32:.1f} s; engine_serving f32 (TF32 off) vs the live "
+        f"f32 pipeline: max|dprob| {err32:.3g} (<= 1e-5 required) [{card}]")
+    if not err32 <= 1e-5:
+        raise SystemExit("the f32 serving program disagrees with the live f32 pipeline")
+    return {"launches": launches, "export_s": {P: meta["buckets"][str(P)]["seconds"]
+                                                 for P in LENGTH_BUCKETS},
+            "alerts_per_s": engine["alerts_per_sec"], "serve_alerts_per_s": live["alerts_per_sec"],
+            "err_bf16": err, "err_f32": err32}
+
+
+def check_export_engine(card: str, rt) -> dict:
+    """Phase 9c: ``export`` of phase 6's trained fusion run in f32 and
+    ``engine`` against ``infer`` (TF32 off, <= 1e-5), with a batch size
+    that leaves a ragged tail; K2 4 and K3f 5 launches a batch, no K1."""
+    saved = {k: rt.config.get_path(k) for k in ("train.compute_dtype", "data_loader.batch_size",
+                                                 "data_loader.drop_last")}
+    n = len(rt.datasets.get("infer") or rt.datasets["train"])
+    batch_size = next(b for b in range(min(32, n - 1), 0, -1) if n % b)
+    for k, v in (("train.compute_dtype", "float32"), ("data_loader.batch_size", batch_size),
+                 ("data_loader.drop_last", False)):
+        rt.set_config(k, v)
+    t0 = time.perf_counter()
+    export_dir = rt.export()
+    seconds = time.perf_counter() - t0
+    meta = json.loads((export_dir / "export_meta.json").read_text())
+    ops = _program_ops(export_dir / "model.pt2")
+    with no_tf32():
+        counters = zero_counters()
+        got = rt.engine(export_dir)
+        launches = _kernel_launches(counters)
+        want = rt.infer()
+    for k, v in saved.items():
+        rt.set_config(k, v)
+    calls = -(-n // batch_size)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    log(f"export of the workflow's fusion run (f32): {seconds:.1f} s, {meta}, custom-op nodes "
+        f"{ops}; engine vs infer over {n} samples in batches of {batch_size} (tail {n % batch_size}): "
+        f"max|dlogit| {err:.3g} (<= 1e-5 required); launches {launches} [{card}]")
+    per_call = _program_kernels(rt.config, serving=False)
+    if not meta["symbolic_batch"] or not err <= 1e-5 or ops != per_call:
+        raise SystemExit("export/engine of the fusion run failed its checks")
+    if rt.device.type == "cuda":
+        _require_program_launches(launches, calls, per_call, "engine")
+    return {"launches": launches, "err": err, "export_s": seconds}
+
+
 def main() -> int:
     import torch
+
+    import tempfile
 
     card = device_and_build()
     records, ladder_launches = check_kernels()
     serving = check_serving(card=card)
-    raw = check_raw_serving(serving.pop("model"), serving.pop("model32"), card)
-    workdir = REPO / "build" / "chip_smoke_train"
-    shutil.rmtree(workdir, ignore_errors=True)
-    try:
-        training = check_training(card, workdir)
-        check_training_parity(workdir)
-    finally:
+    model, model32 = serving.pop("model"), serving.pop("model32")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        for d in ("raw", "workflow", "deploy"):
+            (tmp / d).mkdir()
+        raw = check_raw_serving(model, model32, card, tmp / "raw")
+        workdir = REPO / "build" / "chip_smoke_train"
         shutil.rmtree(workdir, ignore_errors=True)
-    workflow = check_workflow(card)
-    photometry = check_photometry(card)
-    single = check_single_families(card)
+        try:
+            training = check_training(card, workdir)
+            check_training_parity(workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        workflow = check_workflow(card, tmp / "workflow")
+        photometry = check_photometry(card)
+        single = check_single_families(card)
+        t0 = time.perf_counter()
+        check_native_decoder(card, model, model32, raw)
+        deployed = check_export_serving(card, model, model32, raw, tmp / "deploy")
+        engine = check_export_engine(card, workflow["runtime"])
+        log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     for r in records:
         by_path = {"serving": serving["launches"][r["name"]],
                    "raw_serving": raw["launches"][r["name"]],
@@ -2667,7 +2944,9 @@ def main() -> int:
                    "photometry_steps": photometry["staged_launches"][r["name"]],
                    "photometry_protocol": photometry["protocol_launches"][r["name"]],
                    "single_steps": single["staged_launches"][r["name"]],
-                   "single_protocol": single["protocol_launches"][r["name"]]}
+                   "single_protocol": single["protocol_launches"][r["name"]],
+                   "export_serving": deployed["launches"][r["name"]],
+                   "engine": engine["launches"][r["name"]]}
         path = ("ladder" if r["name"].startswith(LADDER_PREFIX) else
                 "training" if r["name"] in TRAINING_KERNELS else "serving")
         r["launches"] = by_path[path]

@@ -16,6 +16,7 @@ from applecider_tpu_torch.infer.stream import SPEC_POINTS, FusedSpectraStream, R
 from applecider_tpu_torch.models import build_fusion_model
 from tests.test_torch_pipeline import GRID, TINY
 from tests.test_torch_preprocessing import assert_bit_equal
+from tests.test_torch_serve import count_native_calls
 
 
 @pytest.fixture(scope="module")
@@ -49,9 +50,11 @@ def _records(rng, n, with_stamps=True):
     return records
 
 
-def test_assemble_samples_matches_jax(rng):
+def test_assemble_samples_matches_jax(rng, monkeypatch):
     records = _records(rng, 4) + _records(rng, 2, with_stamps=False)
+    calls = count_native_calls(monkeypatch, tfeed)
     got = tfeed.assemble_samples(records)
+    assert calls == [12]  # the 4 records' stamps in one native call
     want = jfeed.assemble_samples(records)
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -78,12 +81,13 @@ def test_assemble_names_the_undecodable_record(rng):
 
 @pytest.mark.parametrize("mode,routed", [("thread", False), ("process", False), ("process", True)],
                          ids=["thread", "process", "process_routed"])
-def test_feeder_matches_serial_router(rng, model, mode, routed):
+def test_feeder_matches_serial_router(rng, model, mode, routed, monkeypatch):
     router = (RoutedAlertStream(model, batch_buckets=(8,), wave_grid=GRID, device="cpu") if routed
               else FusedSpectraStream(model, spec_buckets=(0, 2, 4, 8), wave_grid=GRID,
                                       device="cpu"))
     batches = [_records(rng, n) for n in (5, 3, 6, 4)]
     want = [router(tfeed.assemble_samples(rb), length_buckets=(32,)) for rb in batches]
+    calls = count_native_calls(monkeypatch, tfeed)  # seen in this process: thread mode
     feeder = tfeed.OverlappedServingFeeder(router, n_workers=2 if mode == "thread" else 1,
                                            depth=2, buffer=2, mode=mode, length_buckets=(32,))
     seen = []
@@ -92,6 +96,8 @@ def test_feeder_matches_serial_router(rng, model, mode, routed):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+    if mode == "thread":  # one native call a batch, from the worker threads
+        assert sorted(calls) == sorted(3 * len(b) for b in batches)
 
 
 def test_pack_worker_uses_the_routers_spectra_buckets(rng, model):

@@ -42,6 +42,7 @@ MODULES = [
     "applecider_tpu_torch.infer.serve",
     "applecider_tpu_torch.infer.feeder",
     "applecider_tpu_torch.infer.cli",
+    "applecider_tpu_torch.native",
     "applecider_tpu_torch.preprocessing",
     "applecider_tpu_torch.preprocessing.config",
     "applecider_tpu_torch.preprocessing.table",
@@ -76,6 +77,7 @@ MODULES = [
     "applecider_tpu_torch.tools.profile_training",
     "applecider_tpu_torch.tools.flash_microab",
     "applecider_tpu_torch.tools.kernel_timing",
+    "applecider_tpu_torch.tools.host_overhead",
     "applecider_tpu_torch.tools.profile_tasks",
 ]
 

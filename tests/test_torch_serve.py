@@ -39,9 +39,24 @@ def jax_served(pair, corpus, tmp_path_factory):
     return pairs, summary, [json.loads(line) for line in out.read_text().splitlines()]
 
 
+def count_native_calls(monkeypatch, module) -> list:
+    """Record the number of stamps of each ``decode_stamps_batch`` call that
+    ``module`` makes (the native decoder, run as it is)."""
+    calls = []
+    inner = module.decode_stamps_batch
+
+    def counted(stamps, hw=63, n_threads=0):
+        calls.append(len(stamps))
+        return inner(stamps, hw, n_threads)
+
+    monkeypatch.setattr(module, "decode_stamps_batch", counted)
+    return calls
+
+
 @pytest.mark.parametrize("causal", [True, False])
-def test_alert_samples_match_jax(corpus, causal):
+def test_alert_samples_match_jax(corpus, causal, monkeypatch):
     objects = sorted(p.name for p in corpus.iterdir())
+    calls = count_native_calls(monkeypatch, ts)
     n = 0
     for obj in objects:
         got = list(ts.alert_samples_for_object(obj, corpus, causal_spectrum=causal))
@@ -52,9 +67,10 @@ def test_alert_samples_match_jax(corpus, causal):
             assert_bit_equal(gs, ws, obj)
         n += len(got)
     assert n >= 10
+    assert len(calls) == len(objects) and sum(calls) >= 3 * n  # one call an object, 3n stamps
 
 
-def test_odd_stamps_take_the_jax_ladder(corpus, tmp_path):
+def test_odd_stamps_take_the_jax_ladder(corpus, tmp_path, monkeypatch):
     """Short, missing and undecodable cutouts: the alert is padded, or
     dropped, exactly as the JAX reader does."""
     data_dir = tmp_path / "raw"
@@ -68,8 +84,10 @@ def test_odd_stamps_take_the_jax_ladder(corpus, tmp_path):
     alerts[2]["cutoutDifference"]["stampData"] = b"not a stamp"
     alerts[3]["cutoutScience"]["stampData"] = np.arange(63 * 63, dtype=np.float64).reshape(63, 63)
     np.save(path, np.asarray(alerts, dtype=object), allow_pickle=True)
+    calls = count_native_calls(monkeypatch, ts)
     got = list(ts.alert_samples_for_object("ZTFSYN0002", data_dir))
     want = list(js.alert_samples_for_object("ZTFSYN0002", data_dir))
+    assert calls == [3 * len(alerts)]  # the odd alerts then take the per-stamp ladder
     assert len(got) == len(want)
     for (gi, gs), (wi, ws) in zip(got, want):
         assert_bit_equal(gi, wi)
