@@ -6,7 +6,9 @@ padded), the post-LN encoder, LayerNorm of the CLS token; with
 ``classification`` a Linear head to ``num_classes``; returned in f32.
 ``dropout`` (0.40 at the published widths) is threaded through every
 encoder layer; the time embedding takes it only with ``te_dropout`` (the
-MPT pretrainer's trunk).
+MPT pretrainer's trunk). ``remat`` is the encoder's
+(``layers.TransformerEncoder``); the tasks read it from
+``model.BaselineCLS.remat`` through ``resolve_remat``, as the JAX tasks do.
 
 ``BaselineCLSTask`` (registered as ``BaselineCLS`` and ``HyraxBaselineCLS``)
 trains the classifier with focal loss (``focal_gamma``) and
@@ -23,7 +25,9 @@ from torch import nn
 from applecider_tpu_torch.config import Config
 from applecider_tpu_torch.device import resolve_device
 from applecider_tpu_torch.models.base import Task, adam, maybe_softmax
-from applecider_tpu_torch.models.layers import LayerNorm, Linear, TransformerEncoder, init_weights
+from applecider_tpu_torch.models.layers import (
+    LayerNorm, Linear, TransformerEncoder, init_weights, resolve_remat,
+)
 from applecider_tpu_torch.models.time2vec import Time2Vec
 from applecider_tpu_torch.ops.dropout import FastDropout
 from applecider_tpu_torch.ops.losses import focal_loss
@@ -36,7 +40,7 @@ class BaselineCLSEncoder(nn.Module):
     """Projection + Time2Vec + CLS + transformer; returns all L+1 tokens."""
 
     def __init__(self, d_model: int, n_heads: int, n_layers: int, dropout: float = 0.0,
-                 dtype: torch.dtype | None = None, te_dropout: bool = False):
+                 dtype: torch.dtype | None = None, te_dropout: bool = False, remat=False):
         super().__init__()
         self.d_model = d_model
         self.in_proj = Linear(N_EVENT_FEATURES, d_model, dtype=dtype)
@@ -44,7 +48,7 @@ class BaselineCLSEncoder(nn.Module):
         self.te_drop = FastDropout(dropout) if te_dropout else None
         self.cls_tok = nn.Parameter(torch.empty(1, 1, d_model))
         self.encoder = TransformerEncoder(n_layers, d_model, n_heads, 4 * d_model, dropout,
-                                          dtype=dtype)
+                                          dtype=dtype, remat=remat)
 
     def reset_parameters(self, generator=None) -> None:
         with torch.no_grad():
@@ -69,9 +73,10 @@ class BaselineCLSModule(nn.Module):
 
     def __init__(self, d_model: int = 128, n_heads: int = 8, n_layers: int = 4,
                  dropout: float = 0.40, dtype: torch.dtype | None = None,
-                 classification: bool = False, num_classes: int = 5):
+                 classification: bool = False, num_classes: int = 5, remat=False):
         super().__init__()
-        self.trunk = BaselineCLSEncoder(d_model, n_heads, n_layers, dropout, dtype=dtype)
+        self.trunk = BaselineCLSEncoder(d_model, n_heads, n_layers, dropout, dtype=dtype,
+                                        remat=remat)
         self.norm = LayerNorm(d_model, dtype=dtype)
         self.fc = Linear(d_model, num_classes, dtype=dtype) if classification else None
 
@@ -96,7 +101,7 @@ class BaselineCLSTask(Task):
         module = BaselineCLSModule(
             int(mc["d_model"]), int(mc["n_heads"]), int(mc["n_layers"]), float(mc["dropout"]),
             dtype=self.compute_dtype(), classification=mc.get("mode", "photo") == "photo",
-            num_classes=int(mc["num_classes"]))
+            num_classes=int(mc["num_classes"]), remat=resolve_remat(mc.get("remat", "auto")))
         self.module = init_weights(module, generator).to(resolve_device(device))
 
     def loss(self, batch, train: bool = True, kernels: bool = True):

@@ -25,7 +25,7 @@ from applecider_tpu_torch.device import resolve_device
 from applecider_tpu_torch.models.astrominn import AstroMiNNModule
 from applecider_tpu_torch.models.base import Task, adam, maybe_softmax
 from applecider_tpu_torch.models.baseline_cls import BaselineCLSModule
-from applecider_tpu_torch.models.layers import Linear, init_weights
+from applecider_tpu_torch.models.layers import Linear, init_weights, resolve_remat
 from applecider_tpu_torch.models.spectranet import (
     SPECTRUM_BINS, SpectraNetModule, SpectraNetTriPoolModule, build_tripool,
 )
@@ -108,7 +108,8 @@ def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dt
     ac = cfg["model"]["AstroMiNN"]
     fc = cfg["model"]["AppleCider"]
     photometry = BaselineCLSModule(int(pc["d_model"]), int(pc["n_heads"]), int(pc["n_layers"]),
-                                   float(pc["dropout"]), dtype=dt)
+                                   float(pc["dropout"]), dtype=dt,
+                                   remat=resolve_remat(pc.get("remat", "auto")))
     if str(fc.get("spectra_encoder", "standard")) == "tripool":
         spectra = build_tripool(cfg, classification=False, length=SPECTRUM_BINS, dtype=dt)
     else:

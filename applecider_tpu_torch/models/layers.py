@@ -14,6 +14,10 @@ yardstick that ``chip_smoke.py`` compares the path with.
 Dropout sites are live in ``train()`` mode, as flax's are with
 ``deterministic=False``; they draw from the ``DropoutRNG`` that
 ``ops.dropout.attach_dropout_rng`` gives them.
+
+``TransformerEncoder(remat=...)`` is the JAX encoder's backward
+rematerialisation, set by ``model.BaselineCLS.remat`` through
+``resolve_remat``: a memory knob, not a speed knob.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from applecider_tpu_torch.ops.attention import masked_attention, masked_attention_reference
-from applecider_tpu_torch.ops.dropout import SEED_BOUND, DropoutRNG, FastDropout
+from applecider_tpu_torch.ops.dropout import (
+    SEED_BOUND, DropoutRNG, FastDropout, checkpoint, dropout_rngs,
+)
 from applecider_tpu_torch.ops.flash_attention import flash_attention
 from applecider_tpu_torch.ops.ln_gelu import ln_gelu
 
@@ -163,17 +169,64 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """Stack of post-LN layers ``layer_0 .. layer_{n-1}``, no final norm."""
+    """Stack of post-LN layers ``layer_0 .. layer_{n-1}``, no final norm.
+
+    ``remat`` (``resolve_remat``'s values):
+
+    * False: every activation the backward needs is kept.
+    * True: each layer runs under ``ops.dropout.checkpoint``, a
+      non-reentrant activation checkpoint, and the backward recomputes the
+      layer from its input, drawing the same K4 seeds and dropout bits
+      again. The first pass stays under autograd, so it keeps K4 and its
+      dropout.
+    * "attn": the layers run as with False. The JAX policy drops only the
+      (B, H, L, L) scores, probabilities and dropout tensors from the saved
+      set, and those exist only on its XLA attention. Here the attention
+      under autograd is always K4 (``_Flash``), on the card and on the CPU:
+      it saves q, k, v, the mask and the bit source, and its backward
+      recomputes the probabilities, so no (B, H, L, L) tensor is ever saved,
+      which is what "attn" asks for.
+
+    Where autograd does not record the layer (serving, evaluation, a frozen
+    module: its input does not require grad) True changes nothing, as the
+    attention routes by the same test.
+    """
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int, dim_feedforward: int,
-                 dropout: float = 0.0, dtype: torch.dtype | None = None):
+                 dropout: float = 0.0, dtype: torch.dtype | None = None, remat=False):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = resolve_remat(remat)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
                 d_model, num_heads, dim_feedforward, dropout, dtype=dtype))
 
     def forward(self, x, key_padding_mask=None, kernels: bool = True):
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, key_padding_mask, kernels=kernels)
+            layer = getattr(self, f"layer_{i}")
+            if self.remat is True and x.requires_grad:
+                x = checkpoint(layer, x, key_padding_mask, kernels, rngs=dropout_rngs(layer))
+            else:
+                x = layer(x, key_padding_mask, kernels=kernels)
         return x
+
+
+_REMAT_OFF = ("auto", "false", "0", "no", "off", "")
+_REMAT_LAYER = ("true", "1", "yes", "layer")
+
+
+def resolve_remat(value):
+    """A ``model.*.remat`` value as False, True or "attn", as the JAX
+    package resolves it: "auto" (the default) is False, "true", "yes", "1"
+    and "layer" are True. A value it would read as something else raises
+    here rather than being ignored."""
+    if isinstance(value, bool):
+        return value
+    v = str(value).strip().lower()
+    if v in _REMAT_OFF:
+        return False
+    if v in _REMAT_LAYER:
+        return True
+    if v == "attn":
+        return "attn"
+    raise ValueError(f"remat = {value!r}: expected true, false, \"auto\" or \"attn\"")

@@ -29,7 +29,7 @@ from applecider_tpu_torch.config import Config
 from applecider_tpu_torch.device import resolve_device
 from applecider_tpu_torch.models.base import Task, adamw
 from applecider_tpu_torch.models.baseline_cls import BaselineCLSEncoder, BaselineCLSTask
-from applecider_tpu_torch.models.layers import Linear, init_weights
+from applecider_tpu_torch.models.layers import Linear, init_weights, resolve_remat
 from applecider_tpu_torch.ops.dropout import DropoutRNG
 from applecider_tpu_torch.registry import register_model
 
@@ -83,10 +83,10 @@ class MPTModule(nn.Module):
     event tokens: flux (B, L), band logits (B, L, 3), next dt (B, L)."""
 
     def __init__(self, d_model: int = 128, n_heads: int = 8, n_layers: int = 4,
-                 dropout: float = 0.40, dtype: torch.dtype | None = None):
+                 dropout: float = 0.40, dtype: torch.dtype | None = None, remat=False):
         super().__init__()
         self.trunk = BaselineCLSEncoder(d_model, n_heads, n_layers, dropout, dtype=dtype,
-                                        te_dropout=True)
+                                        te_dropout=True, remat=remat)
         self.head_flux = Linear(d_model, 1)
         self.head_band = Linear(d_model, 3)
         self.head_dt = Linear(d_model, 1)
@@ -119,7 +119,8 @@ class MPTTask(Task):
         self.lambdas = (float(mc.get("lambda_f", 5.0)), float(mc.get("lambda_b", 3.0)),
                         float(mc.get("lambda_dt", 5.0)))
         module = MPTModule(int(mc["d_model"]), int(mc["n_heads"]), int(mc["n_layers"]),
-                           float(mc["dropout"]), dtype=self.compute_dtype())
+                           float(mc["dropout"]), dtype=self.compute_dtype(),
+                           remat=resolve_remat(mc.get("remat", "auto")))
         self.module = init_weights(module, generator).to(resolve_device(device))
 
     def loss(self, batch, train: bool = True, kernels: bool = True,

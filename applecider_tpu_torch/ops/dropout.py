@@ -14,11 +14,25 @@ that hands each K4 attention call its Philox seed as a host integer (no
 read-back from the card), and a generator on the model's device for the
 ``FastDropout`` bits. ``attach_dropout_rng`` points every dropout site of a
 model at one; a site without one draws from PyTorch's default generators.
+
+``checkpoint(fn, *args, rngs=...)`` runs ``fn`` under PyTorch's
+non-reentrant activation checkpoint with its draws replayed: the backward
+recomputes the region from the state every generator had when the region
+was entered, so the recompute draws the K4 seeds, the dropout bits and
+MPT's mask the first pass drew. ``preserve_rng_state`` replays PyTorch's
+default generators; ``replay_context_fn`` replays the ``DropoutRNG``s, which
+are not default generators. After the recompute every generator is back
+where the recompute found it, so a checkpointed step leaves the run's
+generators exactly where a plain step leaves them.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Callable, Sequence
+
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 SEED_BOUND = 2**31 - 1  # K4 seeds are drawn in [0, int32 max), as the JAX package draws them
@@ -32,12 +46,72 @@ class DropoutRNG:
         self.cpu = torch.Generator().manual_seed(int(seed))
         self.device = torch.Generator(device=torch.device(device)).manual_seed(int(seed))
 
+    def get_state(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The states of both generators (CPU byte tensors)."""
+        return self.cpu.get_state(), self.device.get_state()
+
+    def set_state(self, state: tuple[torch.Tensor, torch.Tensor]) -> None:
+        self.cpu.set_state(state[0])
+        self.device.set_state(state[1])
+
 
 def attach_dropout_rng(model: nn.Module, rng: DropoutRNG | None) -> None:
     """Every submodule with a ``dropout_rng`` attribute draws from ``rng``."""
     for m in model.modules():
         if hasattr(m, "dropout_rng"):
             m.dropout_rng = rng
+
+
+def dropout_rngs(model: nn.Module) -> list[DropoutRNG]:
+    """The distinct ``DropoutRNG``s that ``model``'s submodules draw from."""
+    found: dict[int, DropoutRNG] = {}
+    for m in model.modules():
+        rng = getattr(m, "dropout_rng", None)
+        if rng is not None:
+            found.setdefault(id(rng), rng)
+    return list(found.values())
+
+
+def replay_context_fn(rngs: Sequence[DropoutRNG]) -> Callable:
+    """A ``context_fn`` for ``torch.utils.checkpoint.checkpoint``: the
+    forward context records each generator's state on entering the region;
+    the recompute context sets them back to it, and on exit, also an early
+    stop of the recompute, puts back the state it found."""
+
+    def context_fn():
+        entered: list = []
+
+        @contextlib.contextmanager
+        def forward():
+            entered[:] = [r.get_state() for r in rngs]
+            yield
+
+        @contextlib.contextmanager
+        def recompute():
+            found = [r.get_state() for r in rngs]
+            for r, s in zip(rngs, entered):
+                r.set_state(s)
+            try:
+                yield
+            finally:
+                for r, s in zip(rngs, found):
+                    r.set_state(s)
+
+        return forward(), recompute()
+
+    return context_fn
+
+
+def checkpoint(fn: Callable, *args, rngs: Sequence[DropoutRNG] = ()):
+    """``fn(*args)`` under a non-reentrant activation checkpoint whose
+    recompute replays the default generators and ``rngs``.
+
+    Non-reentrant, because the reentrant form runs the first pass without
+    autograd, where the attention would take K2, the serving kernel, with
+    no dropout: the training forward would change without an error."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=True,
+        context_fn=replay_context_fn(list(rngs)))
 
 
 def drop_consts(rate: float) -> tuple[int, float]:

@@ -11,11 +11,18 @@ around a ``torch.optim`` optimizer over the trainable parameters:
 optimizer's step with its learning rates scaled by ``ReduceLROnPlateau``'s
 factor (``set_lr_scale``; for Adam and for AdamW's decoupled decay that is
 optax's trailing ``scale(step_size)``).
+
+``warmup_cosine_restarts`` and ``warmup_cosine`` are the JAX package's
+learning-rate schedules as plain functions from the step to the rate,
+equal to the optax schedules they are built from at every step. Neither
+trainer wires them into a config; a caller sets a group's ``lr`` from them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
@@ -169,3 +176,66 @@ class EarlyStopping:
         else:
             self.counter += 1
         return self.counter >= self.patience
+
+
+Schedule = Callable[[int], float]
+
+
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    """``optax.linear_schedule``."""
+    if steps <= 0:
+        return lambda count: init
+    return lambda count: (init - end) * (1 - min(max(count, 0), steps) / steps) + end
+
+
+def _cosine(init: float, steps: int, alpha: float = 0.0) -> Schedule:
+    """``optax.cosine_decay_schedule``."""
+    if not steps > 0:
+        raise ValueError(f"cosine decay needs positive decay steps, got {steps}")
+    return lambda count: init * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * min(count, steps)
+                                                                   / steps)) + alpha)
+
+
+def _join(schedules: Sequence[Schedule], boundaries: Sequence[int]) -> Schedule:
+    """``optax.join_schedules``: past each boundary the next schedule, on the
+    steps counted from that boundary."""
+
+    def schedule(step: int) -> float:
+        out = schedules[0](step)
+        for boundary, later in zip(boundaries, schedules[1:]):
+            if step >= boundary:
+                out = later(step - boundary)
+        return out
+
+    return schedule
+
+
+def warmup_cosine_restarts(base_lr: float, warmup_steps: int, first_cycle_steps: int,
+                           n_cycles: int = 4, t_mult: int = 2, min_scale: float = 0.0) -> Schedule:
+    """Linear warmup from ``0.1 * base_lr`` then cosine annealing with warm
+    restarts, each cycle ``t_mult`` times the last, then a constant floor of
+    ``base_lr * max(min_scale, 1e-3)``: the reference's
+    ``SequentialLR(LinearLR, CosineAnnealingWarmRestarts)``."""
+    schedules, boundaries = [], []
+    step = warmup_steps
+    if warmup_steps > 0:
+        schedules.append(_linear(base_lr * 0.1, base_lr, warmup_steps))
+        boundaries.append(warmup_steps)
+    cycle = first_cycle_steps
+    for _ in range(n_cycles):
+        schedules.append(_cosine(base_lr, cycle, alpha=min_scale))
+        step += cycle
+        boundaries.append(step)
+        cycle *= t_mult
+    schedules.append(lambda count: base_lr * max(min_scale, 1e-3))
+    return _join(schedules, boundaries)
+
+
+def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int) -> Schedule:
+    """``optax.warmup_cosine_decay_schedule`` from 0 (from ``base_lr`` with no
+    warmup) to ``base_lr`` over ``warmup_steps``, then cosine to 0 at
+    ``total_steps``."""
+    warmup = max(warmup_steps, 1)
+    decay = max(total_steps, warmup_steps + 1)
+    return _join([_linear(0.0 if warmup_steps else base_lr, base_lr, warmup),
+                  _cosine(base_lr, decay - warmup)], [warmup])

@@ -11,8 +11,13 @@ computed, so the attention keeps K4 and its dropout), with
 with the mean gradient, the clip (``task.grad_clip``, optax's rule) sees
 the trainable gradients, and ``train.plateau_factor`` scales the learning
 rates. ``train.ema_decay`` keeps a shadow of the parameters, updated after
-every microbatch. The metrics are the task's plus ``grad_norm``, the norm
-of all gradients before clipping. On the card the photometry attention runs
+every microbatch. ``train.remat`` computes the task's loss under an
+activation checkpoint (``ops.dropout.checkpoint``, the JAX step's
+``jax.checkpoint(loss_fn)``): the backward recomputes the forward, drawing
+the same dropout bits, K4 seeds and MPT mask again, so the step equals the
+plain one; a module that moves a buffer in that forward raises, because the
+recompute would move it twice. The metrics are the task's plus
+``grad_norm``, the norm of all gradients before clipping. On the card the photometry attention runs
 on kernel K4 forward and backward, and every SpectraNet LN+GELU on K3
 forward and backward. Parameters stay f32; in bf16 compute each layer casts
 them where it uses them.
@@ -33,10 +38,9 @@ holding the weights that were validated, appends one record per epoch to
 dataset order; ``restore_weights`` loads the weights of ``best``, or of
 ``last`` where there is no ``best``, for inference.
 
-The JAX Trainer's options that the port has not yet (ROADMAP.md Queue A
-item 2 for ``train.remat``, item 7 for the parallel ones) raise when a
-config sets them away from their defaults (``refuse_unported``); none is
-ignored.
+The JAX Trainer's options that the port has not yet, the parallel ones
+(ROADMAP.md Queue A item 7), raise when a config sets them away from their
+defaults (``refuse_unported``); none is ignored.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ import torch
 from applecider_tpu_torch.config import Config
 from applecider_tpu_torch.device import resolve_device
 from applecider_tpu_torch.models.base import Task
-from applecider_tpu_torch.ops.dropout import DropoutRNG, attach_dropout_rng
+from applecider_tpu_torch.ops.dropout import DropoutRNG, attach_dropout_rng, checkpoint
 from applecider_tpu_torch.ops.metrics import classification_report
 from applecider_tpu_torch.train.optim import (
     EMA, EarlyStopping, GradAccumulator, ReduceLROnPlateau, clip_by_global_norm_, set_lr_scale,
@@ -59,8 +63,6 @@ from applecider_tpu_torch.train.optim import (
 )
 from applecider_tpu_torch.utils.observability import grad_norm
 
-_REMAT_ITEM = ("ROADMAP.md Queue A item 2 (train.remat: a replayed forward would draw new "
-               "dropout seeds)")
 _PARALLEL_ITEM = "ROADMAP.md Queue A item 7 (multi-GPU and multi-host)"
 
 
@@ -69,7 +71,6 @@ def refuse_unported(cfg: Config) -> None:
     when ``cfg`` sets it away from its default, naming the option and its
     ROADMAP item."""
     unported = [
-        ("train.remat", bool(cfg.get_path("train.remat", False)), _REMAT_ITEM),
         ("parallel.multihost.enable", bool(cfg.get_path("parallel.multihost.enable", False)),
          _PARALLEL_ITEM),
         ("parallel.mesh_shape", list(cfg.get_path("parallel.mesh_shape", [-1, 1])) != [-1, 1],
@@ -86,6 +87,11 @@ class Trainer:
     def __init__(self, task: Task, cfg: Config, workdir: str | Path, device="cuda",
                  seed: int | None = None):
         refuse_unported(cfg)
+        remat = cfg.get_path("train.remat", False)
+        if not isinstance(remat, bool):
+            raise ValueError(f"train.remat = {remat!r}: expected true or false")
+        self.remat = remat
+        self._buffers_checked = False
         self.task = task
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -137,11 +143,29 @@ class Trainer:
         self.optimizer.step()
         return norm
 
+    def loss(self, batch, train: bool = True, kernels: bool = True):
+        """``task.loss``; under ``train.remat`` inside the activation
+        checkpoint, whose recompute replays every generator of the run."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return self.task.loss(batch, train=train, kernels=kernels)
+        # the first checkpointed forward is checked for buffers it moves
+        # (a BatchNorm in training mode), which the recompute would move again
+        buffers = [] if self._buffers_checked else [
+            (n, b, b.clone()) for n, b in self.model.named_buffers()]
+        out = checkpoint(lambda *b: self.task.loss(b, train=train, kernels=kernels), *batch,
+                         rngs=[self.rng])
+        moved = [n for n, b, before in buffers if not torch.equal(b, before)]
+        if moved:
+            raise RuntimeError(f"train.remat: the forward updated the buffers {moved}, which "
+                               "the backward's recompute would update again")
+        self._buffers_checked = True
+        return out
+
     def train_step(self, batch, kernels: bool = True) -> dict[str, torch.Tensor]:
         """One microbatch on ``batch`` (device tensors from ``to_device``);
         metrics stay on the device."""
         self.model.zero_grad(set_to_none=True)
-        loss, aux = self.task.loss(batch, train=True, kernels=kernels)
+        loss, aux = self.loss(batch, train=True, kernels=kernels)
         loss.backward()
         norm = grad_norm(p.grad for p in self.model.parameters())
         self.apply_gradients()
@@ -202,13 +226,16 @@ class Trainer:
     def restore_checkpoint(self, tag: str = "last") -> int:
         """Load ``tag`` if it exists; returns the epoch to start from. A
         checkpoint without ``ema``, ``plateau`` or ``grad_accum`` leaves
-        that state fresh."""
+        that state fresh, and one without ``opt_state`` (a JAX run carried
+        over by ``scripts/convert_jax_checkpoint.py --params-only``) the
+        optimizer."""
         path = self._ckpt_path(tag)
         if not path.exists():
             return 0
         state = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        if "opt_state" in state:
+            self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])
         if self.ema is not None and "ema" in state:
             self.ema.shadow = state["ema"]

@@ -140,7 +140,26 @@ Phases, in order; any failure exits non-zero before the result line:
    (c) ``export`` of phase 6's trained fusion run in f32 and ``engine``
    against ``infer`` (<= 1e-5) with a ragged tail batch, K2 4 and K3f 5
    launches a batch;
-10. one JSON line describing each kernel, then the result line.
+10. training with remat and weights trained elsewhere, at the published
+   widths: (a) phase 4's fusion step (B = 256) and the photometry
+   classifier (B = 1024), bf16, dropout live, under cuDNN's deterministic
+   algorithms, 3 steps from the same weights, batch and seeds under each
+   remat setting (plain twice, ``train.remat``, ``model.BaselineCLS.remat
+   = true`` and ``"attn"``): losses and updated parameters equal to the
+   plain run's bit for bit where the two plain runs agree bit for bit (else
+   within their difference), the run's and the default generators ending
+   equal, exact launches a step (fusion: K4 forward/backward 4/4, K3f 5,
+   K3b 5 plain and "attn"; 8/4, 10, 5 under ``train.remat``; 8/4, 5, 5
+   under ``remat = true``), step ms (CUDA events) and peak GiB of each;
+   one more fusion step under ``utils.observability.profile_trace``,
+   whose Chrome trace must name ``flash_fwd_mma_kernel``; (b)
+   ``tests/torch_refs.py``'s oracles (BaselineCLS, SpectraNet, AstroMiNN,
+   the fusion model) from seed 0 on the CPU, saved, imported with
+   ``applecider-import-checkpoint-torch`` and restored into the port's
+   tasks on the card: f32 logits (TF32 off) within 1e-4 of the oracles';
+   the imported fusion weights served by ``AppleCiderRuntime.serve`` over
+   phase 3b's corpus (rows finite, summing to 1; K1, K2, K3f launched);
+11. one JSON line describing each kernel, then the result line.
 
 It imports nothing of JAX.
 """
@@ -149,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib.util
 import json
 import os
 import re
@@ -2905,6 +2925,295 @@ def check_export_engine(card: str, rt) -> dict:
     return {"launches": launches, "err": err, "export_s": seconds}
 
 
+# ------------------------------------------------------------- phase 10
+# (train.remat, model.BaselineCLS.remat) of each remat setting
+REMAT_SETTINGS = {"plain": (False, "auto"), "train.remat": (True, "auto"),
+                  "remat=true": (False, True), "attn": (False, "attn")}
+# launches a step: the recompute runs the photometry layers' K4 forward
+# again (remat = true), or the whole forward, K3f included (train.remat);
+# every backward kernel runs once
+_K4_TWICE = {"flash_attention_fwd": 8, "flash_attention_bwd": 4}
+REMAT_STEP_KERNELS = {
+    "fusion": {"plain": TRAINING_KERNELS, "attn": TRAINING_KERNELS,
+               "train.remat": {**_K4_TWICE, "ln_gelu_fwd": 10, "ln_gelu_bwd": 5},
+               "remat=true": {**_K4_TWICE, "ln_gelu_fwd": 5, "ln_gelu_bwd": 5}},
+    "classifier": {"plain": PHOTOMETRY_STEP_KERNELS, "attn": PHOTOMETRY_STEP_KERNELS,
+                   "train.remat": _K4_TWICE, "remat=true": _K4_TWICE},
+}
+
+
+def _remat_cfg(setting: str, model_overrides: dict | None = None):
+    from applecider_tpu_torch.config import load_config
+
+    cfg = load_config(None, model_overrides)
+    train_remat, remat = REMAT_SETTINGS[setting.removesuffix(" again")]
+    cfg.set("train.remat", train_remat)
+    cfg.set("model.BaselineCLS.remat", remat)
+    return cfg
+
+
+def _remat_task(workload: str, cfg, dev):
+    """The workload's task at the published widths in bf16, weights from
+    seed 0."""
+    import torch
+
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.baseline_cls import BaselineCLSTask
+    from applecider_tpu_torch.models.fusion import AppleCiderTask
+
+    gen = torch.Generator().manual_seed(0)
+    if workload == "fusion":
+        return AppleCiderTask(cfg, build_fusion_model(cfg, device=dev, dtype=torch.bfloat16,
+                                                      generator=gen))
+    return BaselineCLSTask(cfg, device=dev, generator=gen)
+
+
+def _remat_run(workload: str, setting: str, host: tuple, workdir: Path, dev, card: str,
+               steps: int = 3, trace_dir: Path | None = None,
+               model_overrides: dict | None = None) -> dict:
+    """``steps`` train steps on one batch under ``setting``, from the same
+    weights, the run's generators at seed 11 and the default ones at seed
+    5: losses, parameters and generator states after them (on the host),
+    step ms (CUDA events), peak GiB and launches. With ``trace_dir``, one
+    more step under ``profile_trace`` after all that is read."""
+    import torch
+
+    from applecider_tpu_torch.train.trainer import Trainer
+    from applecider_tpu_torch.utils.observability import profile_trace
+
+    on_card = dev.type == "cuda"
+    cfg = _remat_cfg(setting, model_overrides)
+    trainer = Trainer(_remat_task(workload, cfg, dev), cfg, workdir / setting, device=dev, seed=11)
+    batch = trainer.to_device(host)
+    torch.manual_seed(5)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    losses, events, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        losses.append(trainer.train_step(batch)["loss"])
+        if on_card:
+            ev[1].record()
+            events.append(ev)
+        else:
+            times.append((time.perf_counter() - t0) * 1e3)
+    if on_card:
+        torch.cuda.synchronize()
+        times = [a.elapsed_time(b) for a, b in events]
+    out = {"launches": _kernel_launches(counters), "ms": times,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan"),
+           "losses": torch.stack(losses).float().cpu(),
+           "params": {n: p.detach().cpu() for n, p in trainer.model.named_parameters()},
+           "rng": (*trainer.rng.get_state(), torch.get_rng_state(),
+                   *(torch.cuda.get_rng_state_all() if on_card else ()))}
+    log(f"  {workload} {setting}: step ms {', '.join(f'{t:.2f}' for t in times)}; peak "
+        f"{out['peak_gib']:.3f} GiB; losses {[round(float(x), 5) for x in out['losses']]} [{card}]")
+    per_step = REMAT_STEP_KERNELS[workload][setting.removesuffix(" again")]
+    _require_launches(out["launches"], {n: per * steps for n, per in per_step.items()},
+                      f"{workload} steps under {setting}", on_card)
+    if trace_dir is not None:
+        with profile_trace(trace_dir):
+            trainer.train_step(batch)
+            if on_card:
+                torch.cuda.synchronize()
+    del trainer, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    d = float((a["losses"] - b["losses"]).abs().max())
+    for n, p in a["params"].items():
+        d = max(d, float((p.float() - b["params"][n].float()).abs().max()))
+    return d
+
+
+def check_remat(card: str, workdir: Path, dev, fusion_batch: int = 256,
+                classifier_batch: int = 1024, steps: int = 3,
+                model_overrides: dict | None = None) -> dict:
+    """Phase 10a: each remat setting against the plain step, on phase 4's
+    fusion step (B = 256) and the photometry classifier (B = 1024), bf16,
+    dropout live, under cuDNN's deterministic algorithms: the losses and
+    the updated parameters equal the plain run's bit for bit where two
+    plain runs agree bit for bit (else within their difference), the
+    generators end in the same state, and the launches a step are exact.
+    One more plain fusion step runs under ``profile_trace``; its Chrome
+    trace must name K4's tensor-core forward."""
+    import torch
+
+    from applecider_tpu_torch.models.fusion import to_tensor
+    from applecider_tpu_torch.testing import SyntheticFusionDataset
+
+    data = SyntheticFusionDataset(fusion_batch, seed=2)
+    hosts = {"fusion": to_tensor(data.collate([data.sample(i) for i in range(fusion_batch)])),
+             "classifier": _photometry_batches(1, classifier_batch, seed=5)[0]}
+    out, launches = {}, {}
+    with deterministic_cudnn():
+        for workload, host in hosts.items():
+            runs = {}
+            for setting in ("plain", "plain again", *[s for s in REMAT_SETTINGS if s != "plain"]):
+                trace = workdir / "trace" if (workload, setting) == ("fusion", "plain again") \
+                    else None
+                runs[setting] = _remat_run(workload, setting, host, workdir, dev, card, steps,
+                                           trace_dir=trace, model_overrides=model_overrides)
+                for n, v in runs[setting]["launches"].items():
+                    launches[n] = launches.get(n, 0) + v
+            noise = _max_diff(runs["plain"], runs["plain again"])
+            plain = runs.pop("plain")
+            rows = {}
+            for setting, run in runs.items():
+                d = _max_diff(run, plain)
+                same_rng = all(torch.equal(x, y) for x, y in zip(run["rng"], plain["rng"]))
+                ok = (d == 0.0 if noise == 0.0 else d <= noise) and same_rng
+                med = float(np.median(run["ms"][1:]))
+                rows[setting] = {"max_abs_diff": d, "same_generators": same_rng, "ok": ok,
+                                 "ms": run["ms"], "median_ms": med, "peak_gib": run["peak_gib"]}
+                log(f"  {workload} {setting} vs plain: losses and updated parameters max|d| {d:.3g} "
+                    f"({'bit for bit' if noise == 0.0 else f'two plain runs differ by {noise:.3g}'}"
+                    f"); generators {'equal' if same_rng else 'DIFFER'}; step {med:.2f} ms "
+                    f"(plain {float(np.median(plain['ms'][1:])):.2f}), peak {run['peak_gib']:.3f} "
+                    f"GiB (plain {plain['peak_gib']:.3f}) {'OK' if ok else 'FAIL'} [{card}]")
+                if not ok:
+                    raise SystemExit(f"{workload} under {setting} differs from the plain step")
+            rows["plain"] = {"ms": plain["ms"], "median_ms": float(np.median(plain["ms"][1:])),
+                             "peak_gib": plain["peak_gib"], "plain_noise": noise}
+            out[workload] = rows
+    trace = (workdir / "trace" / "trace.json").read_text()
+    named = "flash_fwd_mma_kernel" in trace
+    log(f"profile_trace of one fusion step: {len(trace) / 2**20:.1f} MiB Chrome trace, "
+        f"flash_fwd_mma_kernel {'named' if named else 'NOT named'}")
+    if dev.type == "cuda" and not named:
+        raise SystemExit("profile_trace's trace does not name flash_fwd_mma_kernel")
+    return {"settings": out, "launches": launches}
+
+
+def _oracles(torch_refs, cfg) -> dict:
+    """The reference architectures' numeric oracles at the config's widths
+    (the published ones by default), drawn from seed 0 on the CPU, in eval
+    mode."""
+    import torch
+
+    torch.manual_seed(0)
+    pc, sc, ac = (cfg["model"][k] for k in ("BaselineCLS", "SpectraNet", "AstroMiNN"))
+    photo = dict(d_model=int(pc["d_model"]), n_heads=int(pc["n_heads"]),
+                 n_layers=int(pc["n_layers"]))
+    spec = dict(channels=list(sc["channels"]), depths=list(sc["depths"]),
+                kernels=[list(k) for k in sc["kernel_sizes_per_stage"]], num_classes=9,
+                head_hidden=384)
+    astro = dict(backbone_dims=tuple(ac["backbone_dims"]),
+                 backbone_depths=tuple(ac["backbone_depths"]))
+    oracles = {
+        "BaselineCLS": torch_refs.TorchBaselineCLS(**photo),
+        "SpectraNet": torch_refs.TorchSpectraNet(**spec),
+        "AstroMiNN": torch_refs.TorchAstroMiNN(**astro),
+        "AppleCider": torch_refs.TorchAppleCider(
+            torch_refs.TorchBaselineCLS(**photo, classification=False),
+            torch_refs.TorchSpectraNet(**spec, embedding=True),
+            torch_refs.TorchAstroMiNN(**astro), spectra_hidden=384),
+    }
+    return {k: m.eval() for k, m in oracles.items()}
+
+
+def check_imported_checkpoints(card: str, tmp: Path, raw_dir: Path, dev,
+                               model_overrides: dict | None = None) -> dict:
+    """Phase 10b: ``tests/torch_refs.py``'s oracles at the published widths
+    saved as reference checkpoints, imported with
+    ``applecider-import-checkpoint-torch`` (BaselineCLS through
+    ``python -m`` as a subprocess, the rest through its ``main``), restored
+    into the port's tasks on the card with ``Trainer.restore_weights``:
+    f32 logits (TF32 off) within 1e-4 of the oracles' CPU logits on the
+    same inputs. The fusion checkpoint, imported into a run directory of
+    its own, is then served by ``AppleCiderRuntime`` (the default config,
+    ``model.name = "AppleCider"``) ``.serve`` over phase 3b's corpus in bf16:
+    rows finite and summing to 1, K1, K2 and K3f launched.
+    """
+    import subprocess
+
+    import torch
+
+    from applecider_tpu_torch.config import load_config
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.fusion import AppleCiderTask
+    from applecider_tpu_torch.registry import get_model
+    from applecider_tpu_torch.train.runtime import AppleCiderRuntime
+    from applecider_tpu_torch.train.trainer import Trainer
+    from applecider_tpu_torch.utils import import_checkpoint
+
+    # by path: another installed package may own the name ``tests``
+    spec = importlib.util.spec_from_file_location("torch_refs", REPO / "tests" / "torch_refs.py")
+    torch_refs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_refs)
+    rng = np.random.default_rng(0)
+    B, L = 4, 257
+    photo = rng.normal(size=(B, L, 7)).astype(np.float32)
+    pad = np.arange(L)[None, :] >= np.array([L, 180, 60, 9])[:, None]
+    meta = rng.normal(size=(B, 24)).astype(np.float32)
+    image = rng.normal(size=(B, 3, 63, 63)).astype(np.float32)
+    spectra = rng.normal(size=(B, 3481)).astype(np.float32)
+    inputs = {"BaselineCLS": (photo, pad), "SpectraNet": (spectra,), "AstroMiNN": (meta, image),
+              "AppleCider": (photo, pad, meta, image, spectra)}
+    cfg = load_config(None, model_overrides)
+    (tmp / "run.toml").write_text(_toml(model_overrides or {}))
+    cfg.set("train.compute_dtype", "float32")
+    errs = {}
+    for model, oracle in _oracles(torch_refs, cfg).items():
+        with torch.no_grad():
+            want = oracle(*(torch.from_numpy(a) for a in inputs[model]))
+        ckpt = tmp / f"{model}.pt"
+        torch.save(oracle.state_dict(), ckpt)
+        run = tmp / "imported" / model
+        args = ["--model", model, "--ckpt", str(ckpt), "--out", str(run),
+                "--config", str(tmp / "run.toml")]
+        t0 = time.perf_counter()
+        if model == "BaselineCLS":
+            subprocess.run([sys.executable, "-m", "applecider_tpu_torch.utils.import_checkpoint",
+                            *args], check=True, cwd=REPO)
+        else:
+            import_checkpoint.main(args)
+        secs = time.perf_counter() - t0
+        built = get_model(model)(cfg, device=dev) if model != "AppleCider" else \
+            AppleCiderTask(cfg, build_fusion_model(cfg, device=dev))
+        trainer = Trainer(built, cfg, run, device=dev)
+        trainer.restore_weights()
+        port_inputs = tuple(torch.from_numpy(np.ascontiguousarray(
+            a.transpose(0, 2, 3, 1) if a.ndim == 4 else a)) for a in inputs[model])
+        counters = zero_counters()
+        with no_tf32(), torch.no_grad():
+            got = trainer.task.predict(trainer.to_device(port_inputs)).float().cpu()
+        launched = {n: v for n, v in _kernel_launches(counters).items() if v}
+        errs[model] = float((got - want).abs().max()) if got.shape == want.shape else float("inf")
+        log(f"  imported {model} ({sum(v.numel() for v in oracle.state_dict().values()):,} values, "
+            f"{secs:.1f} s): f32 logits max|d| vs its oracle {errs[model]:.3g} (<= 1e-4); "
+            f"launches {launched} [{card}]")
+        del trainer, built
+    if not all(e <= 1e-4 for e in errs.values()):
+        raise SystemExit(f"imported logits disagree with their oracles: {errs}")
+
+    served = tmp / "served"
+    import_checkpoint.main(["--model", "AppleCider", "--ckpt", str(tmp / "AppleCider.pt"),
+                            "--workdir", str(served), "--config", str(tmp / "run.toml")])
+    rt = AppleCiderRuntime(None, model_overrides, workdir=served, device=dev)
+    rt.set_config("model.name", "AppleCider")  # the defaults: bf16, no photometry stats
+    counters = zero_counters()
+    summary = rt.serve(raw_path=raw_dir)
+    launches = _kernel_launches(counters)
+    probs = np.stack([r["probs"] for r in summary["results"]])
+    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    log(f"  served the imported fusion checkpoint: {summary['n_alerts']} alerts, "
+        f"{summary['alerts_per_sec']:.1f} alerts/s, rows sum to 1 within {row_err:.3g}; "
+        f"launches { {n: v for n, v in launches.items() if v} } [{card}]")
+    if not (np.isfinite(probs).all() and row_err <= 1e-3) or \
+            (dev.type == "cuda" and not all(launches[n] for n in SERVING_KERNELS)):
+        raise SystemExit("serving the imported fusion checkpoint failed its checks")
+    return {"errs": errs, "serve_launches": launches, "alerts": summary["n_alerts"]}
+
+
 def main() -> int:
     import torch
 
@@ -2934,6 +3243,17 @@ def main() -> int:
         deployed = check_export_serving(card, model, model32, raw, tmp / "deploy")
         engine = check_export_engine(card, workflow["runtime"])
         log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        remat_dir = REPO / "build" / "chip_smoke_remat"
+        shutil.rmtree(remat_dir, ignore_errors=True)
+        try:
+            remat = check_remat(card, remat_dir, torch.device("cuda"))
+        finally:
+            shutil.rmtree(remat_dir, ignore_errors=True)
+        (tmp / "import").mkdir()
+        imported = check_imported_checkpoints(card, tmp / "import", raw["data_dir"],
+                                              torch.device("cuda"))
+        log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
     for r in records:
         by_path = {"serving": serving["launches"][r["name"]],
                    "raw_serving": raw["launches"][r["name"]],
@@ -2946,7 +3266,9 @@ def main() -> int:
                    "single_steps": single["staged_launches"][r["name"]],
                    "single_protocol": single["protocol_launches"][r["name"]],
                    "export_serving": deployed["launches"][r["name"]],
-                   "engine": engine["launches"][r["name"]]}
+                   "engine": engine["launches"][r["name"]],
+                   "remat": remat["launches"][r["name"]],
+                   "imported_serve": imported["serve_launches"][r["name"]]}
         path = ("ladder" if r["name"].startswith(LADDER_PREFIX) else
                 "training" if r["name"] in TRAINING_KERNELS else "serving")
         r["launches"] = by_path[path]

@@ -58,6 +58,9 @@ MODULES = [
     "applecider_tpu_torch.utils",
     "applecider_tpu_torch.utils.weights",
     "applecider_tpu_torch.utils.observability",
+    "applecider_tpu_torch.utils.rng",
+    "applecider_tpu_torch.utils.torch_port",
+    "applecider_tpu_torch.utils.import_checkpoint",
     "applecider_tpu_torch.datasets",
     "applecider_tpu_torch.datasets.loader",
     "applecider_tpu_torch.datasets.taxonomy",

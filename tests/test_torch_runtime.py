@@ -267,7 +267,6 @@ def test_warmup_without_a_trained_run_warns(prepared, tmp_path):
     ("model/name", "SpectraViT", "train"),
     ("model/name", "BTSModel", "train"),
     ("model/name", "GalSpecNet", "train"),
-    ("train/remat", True, "train"),
     ("parallel/multihost/enable", True, "train"),
     ("parallel/mesh_shape", [2, 4], "train"),
     ("serve/int8", True, "serve"),
@@ -289,6 +288,7 @@ def test_unported_options_raise(prepared, tmp_path, key, value, verb):
     ("train/grad_accum_steps", 2),
     ("train/plateau_factor", 0.5),
     ("train/ema_decay", 0.99),
+    ("train/remat", True),
     ("model/name", "BaselineCLS"),
 ])
 def test_ported_options_train(prepared, tmp_path, key, value):

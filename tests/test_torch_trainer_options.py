@@ -114,6 +114,7 @@ CASES = {  # options, epochs
     "accumulation": ({"grad_accum_steps": 2}, 2),
     "plateau": ({"plateau_factor": 0.5, "plateau_patience": 0}, 3),
     "ema": ({"ema_decay": 0.9}, 2),
+    "remat": ({"remat": True}, 2),
 }
 
 

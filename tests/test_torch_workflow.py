@@ -243,10 +243,10 @@ def test_oversampler_and_taxonomy_match_jax():
 JAX_ONLY_SECTIONS = ()
 JAX_ONLY_KEYS = {
     "model.AppleCider.weight_decay",
-    # the JAX attention/remat routing, the torch checkpoint import, and the
+    # the JAX attention routing, the torch checkpoint import, and the
     # weight decay the JAX classifier does not read either
     *(f"model.BaselineCLS.{k}" for k in (
-        "attention_impl", "remat", "pretrained_weights_path", "weight_decay")),
+        "attention_impl", "pretrained_weights_path", "weight_decay")),
     # SpectraNet's reference-config keys that SpectraNetTask does not read
     *(f"model.SpectraNet.{k}" for k in ("flat_dim", "use_ln_stages")),
     # AstroMiNN's: the coord tower takes the nst1 settings, as in the reference
