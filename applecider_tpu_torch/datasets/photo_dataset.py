@@ -143,11 +143,30 @@ class PhotoEventsDataset:
             idx, _ = self.oversampler.resolve(idx)
         return idx
 
+    def ids(self):
+        """The object id of every index, oversampled rows included."""
+        for i in range(len(self)):
+            yield self.get_object_id(i)
+
+    def get_object_id(self, idx: int) -> str:
+        return str(self.manifest["object_id"][self._resolve(idx)])
+
+    def get_label(self, idx: int) -> int:
+        return int(self.coarse_labels[self._resolve(idx)])
+
+    def get_photometry(self, idx: int) -> np.ndarray:
+        dt, rest, band = load_event_sequence(self.manifest["filepath"][self._resolve(idx)])
+        return build_photo_features(dt, rest, band, self.horizon)
+
+    def get_mean(self, idx: int) -> np.ndarray:
+        return self.mean
+
+    def get_std(self, idx: int) -> np.ndarray:
+        return self.std
+
     def sample(self, idx: int) -> dict:
-        row = self._resolve(idx)
-        dt, rest, band = load_event_sequence(self.manifest["filepath"][row])
-        return {"photometry": build_photo_features(dt, rest, band, self.horizon),
-                "label": int(self.coarse_labels[row]), "mean": self.mean, "std": self.std}
+        return {"photometry": self.get_photometry(idx), "label": self.get_label(idx),
+                "mean": self.mean, "std": self.std}
 
     def collate(self, samples: list[dict]) -> dict:
         return collate_photometry(samples, max_len=self.max_len)

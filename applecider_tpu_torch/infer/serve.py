@@ -21,6 +21,7 @@ samples are the JAX package's bit for bit.
 
 from __future__ import annotations
 
+import itertools
 import json
 import time
 import warnings
@@ -30,7 +31,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from applecider_tpu_torch.infer.stream import (
-    LENGTH_BUCKETS, FusedSpectraStream, LengthBinnedFeeder, decimate_spectrum,
+    LENGTH_BUCKETS, FusedSpectraStream, LengthBinnedFeeder, _has_spectrum, decimate_spectrum,
 )
 from applecider_tpu_torch.native import decode_stamps_batch
 from applecider_tpu_torch.preprocessing.builder import ALERT_META_KEEP, _meta_vector
@@ -236,6 +237,8 @@ def serve_alert_stream(
     horizon_days: Optional[float] = 100.0,
     device="cuda",
     kernels: bool = True,
+    int8: bool = False,
+    calib_alerts: int = 64,
 ) -> dict:
     """Classify a stream of ``(info, sample)`` pairs with the port's
     ``model``; returns a summary dict.
@@ -247,13 +250,43 @@ def serve_alert_stream(
     back once the next one is enqueued. ``kernels=False`` runs the plain
     versions of the kernels (the yardstick).
 
+    ``int8=True`` (opt-in; accuracy depends on the workload) calibrates
+    int8 activation scales (``ops.quant``) on the stream's first
+    ``calib_alerts`` alerts, eagerly on the model's device, then serves the
+    whole stream, those alerts included, through the quantized router.
+    Leading alerts rarely carry a spectrum (one attaches only once taken),
+    so when none of them does, up to ``20 * calib_alerts`` further alerts
+    are read ahead until 4 spectrum carriers join the calibration batch.
+    As in the JAX package, the quantized router takes the default horizon
+    (100 days), not ``horizon_days``.
+
     Results are ``summary["results"]``: the input ``info`` dicts extended
     with ``probs``, in arrival order (and written as JSONL when
-    ``out_jsonl`` is given).
+    ``out_jsonl`` is given). ``summary["batches"]`` counts the forwards
+    that served them, and ``summary["quant_scales"]`` holds the int8
+    scales (None without ``int8``).
     """
     router = FusedSpectraStream(model, stats_mean=stats_mean, stats_std=stats_std,
                                 wave_grid=wave_grid, horizon_days=horizon_days,
                                 device=device, kernels=kernels)
+    samples = iter(samples)
+    scales = None
+    if int8:
+        head = list(itertools.islice(samples, calib_alerts))
+        extra: list = []
+        if head and not any(_has_spectrum(s) for _, s in head):
+            for pair in itertools.islice(samples, 20 * calib_alerts):
+                extra.append(pair)
+                if sum(_has_spectrum(s) for _, s in extra) >= 4:
+                    break
+        samples = itertools.chain(head, extra, samples)
+        if head:
+            calib = head + [p for p in extra if _has_spectrum(p[1])]
+            placed = router.place([s for _, s in calib], length_buckets=length_buckets)
+            scales = router.pipe.calibrate([placed])
+            router = FusedSpectraStream(model, stats_mean=stats_mean, stats_std=stats_std,
+                                        wave_grid=wave_grid, quantize_scales=scales,
+                                        device=device, kernels=kernels)
     infos: list[dict] = []
     probs_by_idx: dict[int, np.ndarray] = {}
     pending: list = []
@@ -264,8 +297,12 @@ def serve_alert_stream(
         for j, i in enumerate(idxs):
             probs_by_idx[i] = out[j]
 
+    n_batches = 0
+
     def drain(ready):
+        nonlocal n_batches
         for entry in ready:
+            n_batches += 1
             pending.append(entry)
             while len(pending) > 1:
                 resolve_oldest()
@@ -314,5 +351,7 @@ def serve_alert_stream(
         "n_alerts": len(infos),
         "seconds": elapsed,
         "alerts_per_sec": len(infos) / elapsed if elapsed > 0 else 0.0,
+        "batches": n_batches,
+        "quant_scales": scales,
         "results": results,
     }

@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from applecider_tpu_torch.device import resolve_device
+from applecider_tpu_torch.ops import quant
 from applecider_tpu_torch.ops.merge_scan import seg_ids, seg_ids_reference
 
 LOG_CONST = float(1.0 / np.log(10.0))
@@ -333,6 +334,11 @@ class AlertStreamPipeline:
     ``kernels=False`` runs the plain PyTorch versions of the kernels on the
     same device: the yardstick the kernel path is held to.
 
+    ``quantize_scales`` (from ``calibrate``) serves in int8: the layers
+    with a scale are quantized once (``ops.quant.prepare``), and the
+    forward runs inside ``ops.quant.quantized``, so each of them computes
+    with the int8 kernels (their twins with ``kernels=False``).
+
     ``skip_spectra`` serves batches none of whose alerts has a spectrum:
     resampling and MAD are skipped, SpectraNet runs once on a (1, G) zero
     spectrum and its embedding broadcasts over the batch (every SpectraNet
@@ -343,14 +349,18 @@ class AlertStreamPipeline:
     def __init__(self, model, stats_mean=None, stats_std=None,
                  wave_grid: Optional[np.ndarray] = None, compact_spectra: bool = False,
                  horizon_days: Optional[float] = 100.0, device="cuda", kernels: bool = True,
-                 skip_spectra: bool = False):
+                 skip_spectra: bool = False, quantize_scales: Optional[dict] = None):
         if compact_spectra and skip_spectra:
             raise ValueError("compact_spectra and skip_spectra are mutually exclusive")
         self.device = resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev != self.device:
             raise ValueError(f"model is on {model_dev}, pipeline on {self.device}")
-        self.model = model
+        self.model = quant.set_paths(model)
+        self.quant_scales = dict(quantize_scales) if quantize_scales else None
+        # the layers quantized once, for every forward
+        self.quant_layers = quant.prepare(model, self.quant_scales) if self.quant_scales else None
+        self.kernels = bool(kernels)
         mean = torch.as_tensor(
             np.zeros(4, np.float32) if stats_mean is None else np.asarray(stats_mean, np.float32)
         ).to(self.device)
@@ -366,7 +376,19 @@ class AlertStreamPipeline:
     def __call__(self, raw: dict) -> torch.Tensor:
         if raw["photo_t"].shape[0] == 0:
             return torch.zeros((0, self.model.num_classes), device=self.device)
+        if self.quant_scales is not None:
+            with quant.quantized(self.quant_scales, kernels=self.kernels,
+                                 layers=self.quant_layers):
+                return self.program(raw)
         return self.program(raw)
+
+    @torch.inference_mode()
+    def calibrate(self, raws: list, percentile_headroom: float = 1.0) -> dict:
+        """Observe each layer's input range on representative placed
+        batches, the float forward run eagerly on the model's device;
+        returns the {module path: scale} dict that ``quantize_scales``
+        takes."""
+        return quant.calibrate(self.program, raws, percentile_headroom=percentile_headroom)
 
     def preprocess(self, raw: dict) -> dict:
         """Device preprocessing of a placed batch: the model's inputs."""

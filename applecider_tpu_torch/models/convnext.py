@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from applecider_tpu_torch.models.layers import LayerNorm, Linear, gelu_exact, uniform_
+from applecider_tpu_torch.ops.quant import quant_conv
 
 
 class LayerNorm6(LayerNorm):
@@ -46,6 +47,10 @@ class Conv2dTorch(nn.Module):
         uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the opt-in int8 serving path (ops.quant), before any float route
+        q = quant_conv(x, self, self.dtype or x.dtype, self.stride, self.padding, self.groups)
+        if q is not None:
+            return q
         dt = self.dtype or torch.float32
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), stride=self.stride,
                      padding=self.padding, groups=self.groups)

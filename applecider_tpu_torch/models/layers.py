@@ -15,6 +15,10 @@ Dropout sites are live in ``train()`` mode, as flax's are with
 ``deterministic=False``; they draw from the ``DropoutRNG`` that
 ``ops.dropout.attach_dropout_rng`` gives them.
 
+The dense layer and the convolutions (``convnext.Conv2dTorch``,
+``spectranet.Conv1d``) hold the hook of ``ops.quant``: inside
+``quantized(scales)`` a layer with a scale computes in int8.
+
 ``TransformerEncoder(remat=...)`` is the JAX encoder's backward
 rematerialisation, set by ``model.BaselineCLS.remat`` through
 ``resolve_remat``: a memory knob, not a speed knob.
@@ -34,6 +38,7 @@ from applecider_tpu_torch.ops.dropout import (
 )
 from applecider_tpu_torch.ops.flash_attention import flash_attention
 from applecider_tpu_torch.ops.ln_gelu import ln_gelu
+from applecider_tpu_torch.ops.quant import quant_dense
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator | None) -> None:
@@ -67,6 +72,9 @@ class Linear(nn.Module):
         uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q = quant_dense(x, self)  # the opt-in int8 serving path; None unless ops.quant is on
+        if q is not None:
+            return q
         dt = self.dtype or torch.float32
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 

@@ -63,6 +63,7 @@ from applecider_tpu_torch.models.layers import (
 from applecider_tpu_torch.ops.conv1d import avg_pool1d, conv1d_ncl, max_pool1d, min_pool1d
 from applecider_tpu_torch.ops.dropout import FastDropout
 from applecider_tpu_torch.ops.losses import focal_loss
+from applecider_tpu_torch.ops.quant import quant_conv
 from applecider_tpu_torch.registry import register_model
 
 DEFAULT_BANKS = ((3, 61, 1021), (3, 31, 251), (3, 15, 61), (3, 11, 31), (3, 7, 13))
@@ -86,16 +87,25 @@ class Conv1d(nn.Module):
 
     def pointwise(self, x: torch.Tensor) -> torch.Tensor:
         """The 1x1 conv on (B, L, Cin): the product in x's dtype, then the
-        f32 bias."""
+        f32 bias (or the int8 path of ``ops.quant``, in x's dtype)."""
+        q = quant_conv(x, self, x.dtype)
+        if q is not None:
+            return q
         return F.linear(x, self.weight[:, :, 0].to(x.dtype)) + self.bias
 
 
 def _bank(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """The block's conv bank on x (B, L, Cin), outputs concatenated on
-    channels: (B, L, n_convs * Cout)."""
+    channels: (B, L, n_convs * Cout). A conv with an int8 scale
+    (``ops.quant``) takes the direct int8 convolution, 'same' odd K,
+    stride 1, in x's dtype."""
     xc = x.transpose(1, 2)
-    convs = [getattr(block, f"conv_{i}") for i in range(block.n_convs)]
-    return torch.cat([conv1d_ncl(xc, c.weight, c.bias) for c in convs], dim=1).transpose(1, 2)
+    outs = []
+    for i in range(block.n_convs):
+        c = getattr(block, f"conv_{i}")
+        y = quant_conv(x, c, x.dtype, padding=c.weight.shape[-1] // 2)
+        outs.append(conv1d_ncl(xc, c.weight, c.bias).transpose(1, 2) if y is None else y)
+    return torch.cat(outs, dim=-1)
 
 
 class SpectraBlock(nn.Module):

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("merge_scan", "attention", "ln_gelu", "flash_attention")
+SOURCES = ("merge_scan", "attention", "ln_gelu", "flash_attention", "int8")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -215,18 +215,16 @@ class AppleCiderRuntime:
         Config under ``[serve]``: ``data_location`` (the raw dir; the
         ``raw_path`` argument wins), ``batch_size``, ``binned``,
         ``length_buckets``, ``causal_spectrum``, ``stats_event_path``,
-        ``horizon_days``. Weights: ``params`` (a state_dict), else the most
-        recent trained run's. Writes ``alerts.jsonl`` and ``serve.json``
-        into a timestamped run dir; returns the summary of
-        ``serve_alert_stream`` with ``run_dir``.
+        ``horizon_days``, ``int8`` (int8 serving, calibrated on the stream's
+        leading alerts: ``serve_alert_stream(int8=True)``). Weights:
+        ``params`` (a state_dict), else the most recent trained run's.
+        Writes ``alerts.jsonl`` and ``serve.json`` into a timestamped run
+        dir; returns the summary of ``serve_alert_stream`` with
+        ``run_dir``.
         """
         from applecider_tpu_torch.infer.serve import iter_alert_samples, serve_alert_stream
 
         sec = self.config.section("serve")
-        if bool(sec.get("int8", False)):
-            raise NotImplementedError(
-                "serve.int8 = true is not ported to applecider_tpu_torch yet "
-                "(ROADMAP.md Queue A item 4, int8 serving)")
         raw_path = raw_path or sec.get("data_location")
         if not raw_path:
             raise KeyError("[serve].data_location not set and no raw_path given")
@@ -244,6 +242,7 @@ class AppleCiderRuntime:
             out_jsonl=out_dir / "alerts.jsonl",
             horizon_days=self._serve_horizon(),
             device=self.device,
+            int8=bool(sec.get("int8", False)),
         )
         (out_dir / "serve.json").write_text(json.dumps(
             {k: v for k, v in summary.items() if k != "results"}))
@@ -317,10 +316,14 @@ class AppleCiderRuntime:
         as one ``torch.export`` program per length bucket
         (``serving_P{P}.pt2``, default ``[serve].length_buckets``), with the
         training stats and the horizon baked in, and ``serving_meta.json``
-        (``length_buckets``, ``max_spec``, ``stats_baked_in`` and, for each
-        bucket, ``batch_size``, ``symbolic_batch``, ``seconds`` of its
-        export and ``symbolic_error`` after a fallback). Weights: ``params``
-        (a state_dict), else the latest trained run's."""
+        (``length_buckets``, ``max_spec``, ``stats_baked_in``,
+        ``param_names`` and, for each bucket, ``batch_size``,
+        ``symbolic_batch``, ``seconds`` of its export and ``symbolic_error``
+        after a fallback). Weights: ``params`` (a state_dict), else the
+        latest trained run's. They are written once, as the model's
+        state_dict in ``params/model.pt``: each program takes them as its
+        first input (``forward(params, raw)``, as the JAX export takes
+        ``pipe._forward(params, raw)``) and carries none."""
         from applecider_tpu_torch.infer.stream import AlertStreamPipeline, pack_alert_batch
 
         model = self._serving_model(params)
@@ -331,21 +334,24 @@ class AppleCiderRuntime:
         program = AlertStreamPipeline(model, stats_mean=mean, stats_std=std, wave_grid=wave_grid,
                                       horizon_days=self._serve_horizon(),
                                       device=self.device).program.eval()
+        weights = dict(model.state_dict())
         out_path = Path(out_path) if out_path else self._new_run_dir("export-serving")
-        out_path.mkdir(parents=True, exist_ok=True)
+        (out_path / "params").mkdir(parents=True, exist_ok=True)
+        torch.save(weights, out_path / "params" / "model.pt")
 
-        def raw_args(P, b):
+        def args(P, b):
             samples = _warmup_samples(np.random.default_rng(0), b, P)
             raw = pack_alert_batch(samples, max_photo=P, max_spec=max_spec)
-            return ({k: torch.from_numpy(v).to(self.device) for k, v in raw.items()},)
+            return weights, {k: torch.from_numpy(v).to(self.device) for k, v in raw.items()}
 
         meta = {"length_buckets": [int(P) for P in length_buckets], "max_spec": int(max_spec),
-                "stats_baked_in": mean is not None, "buckets": {}}
+                "stats_baked_in": mean is not None, "param_names": list(weights), "buckets": {}}
         concrete_b = int(self.config.get_path("serve.batch_size", default=1024))
         for P in length_buckets:
             t0 = time.perf_counter()
             exported, bmeta = _export_with_symbolic_batch(
-                program, lambda b, P=P: raw_args(P, b), 4, concrete_b)
+                _ServingFunction(program), lambda b, P=P: args(P, b), 4, concrete_b, n_static=1)
+            exported.example_inputs = None  # they hold the weights too
             torch.export.save(exported, out_path / f"serving_P{P}.pt2")
             bmeta["seconds"] = time.perf_counter() - t0
             meta["buckets"][str(P)] = bmeta
@@ -360,8 +366,9 @@ class AppleCiderRuntime:
         ``pack_alert_batch`` at the bucket of their longest light curve, and
         no model code. A bucket exported at a concrete batch gets its batch
         padded to that size (the pad sliced off); a larger batch raises.
-        ``params`` (a state_dict of the model) replaces the weights the
-        programs carry. Returns ``serve_alert_stream``'s summary shape."""
+        The programs take the weights of ``params/model.pt``, or ``params``
+        (a state_dict of the model) in their place. Returns
+        ``serve_alert_stream``'s summary shape."""
         from applecider_tpu_torch.infer.serve import iter_alert_samples
         from applecider_tpu_torch.infer.stream import pack_alert_batch
 
@@ -374,11 +381,7 @@ class AppleCiderRuntime:
         meta = json.loads((export_dir / "serving_meta.json").read_text())
         buckets = tuple(meta["length_buckets"])
         max_spec = int(meta["max_spec"])
-        programs = {}
-        for P in buckets:
-            programs[P] = torch.export.load(export_dir / f"serving_P{P}.pt2").module()
-            if params is not None:
-                _load_model_params(programs[P], params)
+        programs = load_serving_programs(export_dir, params, self.device)
 
         infos, probs, batch = [], [], []
         t0 = time.perf_counter()
@@ -485,18 +488,63 @@ class _PredictProgram(torch.nn.Module):
         return self.task.predict(batch)
 
 
+class _ServingFunction(torch.nn.Module):
+    """A ``ServingProgram`` as a function of the model's weights and a raw
+    batch, ``forward(params, raw)``, through ``torch.func.functional_call``:
+    the program is held in a list, not as a submodule, so an export of this
+    module takes the weights as an input and carries none of them."""
+
+    def __init__(self, program: torch.nn.Module):
+        super().__init__()
+        self._program = [program]
+
+    def forward(self, params: dict, raw: dict) -> torch.Tensor:
+        return torch.func.functional_call(
+            self._program[0], {f"model.{k}": v for k, v in params.items()}, (raw,))
+
+
+def load_serving_programs(export_dir: str | Path, params: dict | None = None,
+                          device="cuda") -> dict:
+    """``export_serving``'s programs, each bound to the model's weights:
+    ``{P: fn}`` with ``fn(raw)`` the (B, num_classes) probabilities. The
+    weights are ``params`` (a state_dict of the model), else the
+    artifact's own ``params/model.pt``; every name the export took must be
+    there, and no other."""
+    export_dir = Path(export_dir)
+    device = resolve_device(device)
+    meta = json.loads((export_dir / "serving_meta.json").read_text())
+    if params is None:
+        params = torch.load(export_dir / "params" / "model.pt", map_location=device,
+                            weights_only=True)
+    names = meta["param_names"]
+    missing = [k for k in names if k not in params]
+    unexpected = [k for k in params if k not in set(names)]
+    if missing or unexpected:
+        raise KeyError(f"params do not fit the programs: unexpected {unexpected}, "
+                       f"missing {missing}")
+    bound = {k: params[k].to(device) for k in names}  # the order the export took
+
+    def bind(module):
+        return lambda raw: module(bound, raw)
+
+    return {int(P): bind(torch.export.load(export_dir / f"serving_P{P}.pt2").module())
+            for P in meta["length_buckets"]}
+
+
 def _export_with_symbolic_batch(module: torch.nn.Module, make_args, example_b: int,
-                                concrete_b: int):
+                                concrete_b: int, n_static: int = 0):
     """``torch.export`` of ``module`` on ``make_args(b)`` (a tuple) with a
-    symbolic batch over every leading dimension of ``example_b`` rows;
-    where that export fails, one at ``concrete_b`` rows. Returns
-    (ExportedProgram, meta)."""
+    symbolic batch over every leading dimension of ``example_b`` rows in
+    the arguments after the first ``n_static`` (which keep their shapes:
+    the weights); where that export fails, one at ``concrete_b`` rows.
+    Returns (ExportedProgram, meta)."""
     meta = {"batch_size": int(concrete_b)}
     try:
         batch = torch.export.Dim("batch", min=1)
         args = make_args(example_b)
         dims = torch.utils._pytree.tree_map(
             lambda t: {0: batch} if t.dim() and t.shape[0] == example_b else None, args)
+        dims = (*torch.utils._pytree.tree_map(lambda t: None, args[:n_static]), *dims[n_static:])
         exported = torch.export.export(module, args, dynamic_shapes=dims, strict=False)
         meta["symbolic_batch"] = True
     except Exception as e:  # noqa: BLE001 — the fallback is recorded, as the JAX runtime does
@@ -504,16 +552,6 @@ def _export_with_symbolic_batch(module: torch.nn.Module, make_args, example_b: i
         meta["symbolic_batch"] = False
         meta["symbolic_error"] = f"{type(e).__name__}: {e}"
     return exported, meta
-
-
-def _load_model_params(program: torch.nn.Module, params: dict) -> None:
-    """Load a model state_dict into a loaded program, which keeps the model
-    under ``model.``; every key of ``params`` must land."""
-    result = program.load_state_dict({f"model.{k}": v for k, v in params.items()}, strict=False)
-    missing = [k for k in result.missing_keys if k.startswith("model.")]
-    if result.unexpected_keys or missing:
-        raise KeyError(f"params do not fit the program: unexpected {result.unexpected_keys}, "
-                       f"missing {missing}")
 
 
 def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:

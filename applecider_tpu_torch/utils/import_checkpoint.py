@@ -35,6 +35,7 @@ import argparse
 import datetime as _dt
 import json
 import re
+import warnings
 from pathlib import Path
 from typing import Mapping
 
@@ -129,9 +130,39 @@ def check_against(module: torch.nn.Module, state: Mapping[str, torch.Tensor]) ->
     raise ValueError("\n".join(lines))
 
 
+def follow_tripool_layout(sd: Mapping, model: str, cfg: Config) -> None:
+    """Set ``model.SpectraNetTriPool.use_ln_stages`` in ``cfg`` to the norm
+    layout a TriPool checkpoint in the reference's names carries
+    (``torch_port.tripool_use_ln``), as the JAX importer follows the
+    checkpoint: the SpectraNetTriPool model, and the reference's own fusion
+    layout. A layout the config names and the checkpoint contradicts is
+    replaced, with a warning that names both; any other model is left
+    alone."""
+    if model == "SpectraNetTriPool":
+        spectra = sd
+    elif model in ("AppleCider", "Fusion") and any(k.startswith("img_metadata_encoder.")
+                                                   for k in sd):
+        spectra = torch_port._sub(sd, "spectra_encoder")
+    else:
+        return
+    tc = dict(cfg["model"].get("SpectraNetTriPool", {}))
+    n_stages = len(tc.get("depths", tc.get("channels", (1,) * 5)))
+    inferred = torch_port.tripool_use_ln(spectra, n_stages)
+    named = tc.get("use_ln_stages")
+    if named is not None and [bool(v) for v in named] != inferred:
+        warnings.warn(f"model.SpectraNetTriPool.use_ln_stages = {json.dumps(list(named))} "
+                      f"disagrees with the checkpoint's norm layout {json.dumps(inferred)} (a stage "
+                      "with running statistics is BatchNorm); the checkpoint's layout builds the "
+                      "model", stacklevel=2)
+    cfg.set("model.SpectraNetTriPool.use_ln_stages", inferred)
+
+
 def import_checkpoint(sd: Mapping, model: str, cfg: Config) -> dict[str, torch.Tensor]:
     """``convert`` then ``check_against`` a fresh port module of ``model``;
-    also loads it into that module, strictly."""
+    also loads it into that module, strictly. A TriPool checkpoint's norm
+    layout is read from it first (``follow_tripool_layout``, which sets it
+    in ``cfg``)."""
+    follow_tripool_layout(sd, model, cfg)
     try:
         with torch_port.reading() as read:
             state = convert(sd, model, cfg)

@@ -185,6 +185,13 @@ def spectranet_tripool_sd(sd: Mapping, depths: Sequence[int]) -> dict:
     return out
 
 
+def tripool_use_ln(sd: Mapping, n_stages: int) -> list[bool]:
+    """The norm layout of a TriPool state_dict in the reference's names, as
+    the JAX package reads it: stage s is BatchNorm exactly when
+    ``stage{s + 1}.0.norm.running_mean`` is present, else LayerNorm."""
+    return [f"stage{s + 1}.0.norm.running_mean" not in sd for s in range(n_stages)]
+
+
 def rename_reference_spectranet_sd(sd: Mapping) -> dict:
     """``stage{k}.{d}.*`` (build_spec_model, SpectraNet.py:9-114) ->
     ``stages.{k-1}.{d}.*``; the other names already align."""

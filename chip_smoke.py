@@ -159,7 +159,26 @@ Phases, in order; any failure exits non-zero before the result line:
    tasks on the card: f32 logits (TF32 off) within 1e-4 of the oracles';
    the imported fusion weights served by ``AppleCiderRuntime.serve`` over
    phase 3b's corpus (rows finite, summing to 1; K1, K2, K3f launched);
-11. one JSON line describing each kernel, then the result line.
+11. int8 serving: (a) each int8 kernel of ``csrc/int8.cu`` (the quantizer,
+   the GEMM, the convolution, the depthwise convolution) against its plain
+   twin at the serving path's shapes (the SpectraNet convolutions on the
+   serving batch's largest spectra block, 193), the int32 accumulators
+   and the f32 and bf16 epilogues bit for bit, the GEMM also against
+   ``torch._int_mm`` where that call takes the shape, then timed (ms,
+   device ms with the calls queued, the twin, the bound at 3.35 TB/s or
+   1,979 int8 TOPS, ``torch._int_mm``); (b) phase 3b's corpus served with
+   ``int8=True`` through ``serve_alert_stream`` (bf16 weights, calibrated
+   on the first 64 alerts; alerts/s beside phase 3b's; every int8 kernel
+   launched exactly once a quantized layer a batch) and through
+   ``AppleCiderRuntime.serve`` with ``[serve].int8 = true`` (within 1e-3
+   of it): rows finite and summing to 1, ``quant_error_report`` against
+   the f32 serve, in f32 on 256 alerts the int8 kernel path against its
+   plain twins (<= 1e-2), and one 512-row batch a length bucket, with
+   every int8 kernel call held against its twin on the same inputs (int8
+   codes and int32 accumulators bit for bit) and timed, int8 beside bf16
+   (ms between CUDA events, and the card's busy ms from
+   ``torch.profiler``);
+12. one JSON line describing each kernel, then the result line.
 
 It imports nothing of JAX.
 """
@@ -184,7 +203,7 @@ from applecider_tpu_torch.tools.kernel_timing import time_ms
 REPO = Path(__file__).resolve().parent
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): bytes/s and ops/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -1184,13 +1203,16 @@ def check_kernels() -> tuple[list[dict], dict]:
 
 # ------------------------------------------------------------- phase 3
 def kernel_counters() -> dict:
-    from applecider_tpu_torch.ops import attention, flash_attention, flash_microab, ln_gelu, merge_scan
+    from applecider_tpu_torch.ops import (
+        attention, flash_attention, flash_microab, int8, ln_gelu, merge_scan,
+    )
 
     return {"merge_scan": merge_scan.KERNEL, "masked_attention": attention.KERNEL,
             "ln_gelu_fwd": ln_gelu.KERNEL, "ln_gelu_bwd": ln_gelu.KERNEL_BWD,
             "flash_attention_fwd": flash_attention.KERNEL_FWD,
             "flash_attention_bwd": flash_attention.KERNEL_BWD,
-            **{LADDER_PREFIX + m: k for m, k in flash_microab.KERNELS.items()}}
+            **{LADDER_PREFIX + m: k for m, k in flash_microab.KERNELS.items()},
+            **int8.KERNELS}
 
 
 SERVING_KERNELS = ("merge_scan", "masked_attention", "ln_gelu_fwd")
@@ -2813,7 +2835,8 @@ def check_export_serving(card: str, model, model32, raw: dict, tmp: Path,
                          model_overrides: dict | None = None) -> dict:
     """Phase 9b: ``export_serving`` of phase 3's bf16 weights at every
     serving length bucket (each symbolic in batch, each graph holding K1
-    x1, K2 x4, K3f x5), then ``engine_serving`` over phase 3b's corpus
+    x1, K2 x4, K3f x5; the weights written once, under ``params/``), then
+    ``engine_serving`` over phase 3b's corpus
     against ``serve_alert_stream`` on the same weights (bf16, <= 1e-3), in
     one call with it for alerts/s, the launch counters 1/4/5 a program
     call; and one f32 program (P = 257, TF32 off) against the live f32
@@ -2838,6 +2861,10 @@ def check_export_serving(card: str, model, model32, raw: dict, tmp: Path,
     out = rt.export_serving(tmp / "serving_bf16", length_buckets=LENGTH_BUCKETS,
                             params=model.state_dict())
     meta = json.loads((out / "serving_meta.json").read_text())
+    sizes = {f.name: f.stat().st_size / 2**20 for f in out.rglob("*") if f.is_file()}
+    log(f"export_serving bf16 artifact: params/model.pt {sizes['model.pt']:.1f} MiB written once, "
+        f"{len(LENGTH_BUCKETS)} programs {sum(v for k, v in sizes.items() if k.endswith('.pt2')):.1f} "
+        f"MiB, {sum(sizes.values()):.1f} MiB in all")
     for P in LENGTH_BUCKETS:
         bmeta = meta["buckets"][str(P)]
         ops = _program_ops(out / f"serving_P{P}.pt2")
@@ -3214,6 +3241,443 @@ def check_imported_checkpoints(card: str, tmp: Path, raw_dir: Path, dev,
     return {"errs": errs, "serve_launches": launches, "alerts": summary["n_alerts"]}
 
 
+# ------------------------------------------------------------- phase 11
+INT8_KERNELS = ("int8_quantize", "int8_gemm", "int8_conv", "int8_dwconv")
+INT8_SOURCE = "applecider_tpu_torch/csrc/int8.cu"
+SERVE_BATCH = 512
+# (what, M, K, N): the serving path's dense layers at B = 512 alerts of 258
+# tokens (the photometry transformer), and its small towers and heads
+INT8_GEMMS = (("photometry in_proj 7->128", 512 * 258, 7, 128),
+              ("attention in_proj 128->384", 512 * 258, 128, 384),
+              ("FFN linear1 128->512", 512 * 258, 128, 512),
+              ("FFN linear2 512->128", 512 * 258, 512, 128),
+              ("metadata tower 19->128", 512, 19, 128),
+              ("router 128->4", 512, 128, 4))
+INT8_GEMM_TIMED = 1  # the attention in_proj
+# the largest spectra block of a 512-alert serving batch: 192 spectra (the
+# spectra bucket above phase 3b's 123-162 a batch) and the zero row
+SPEC_BLOCK = 193
+# (what, B, H, W, Cin, Cout, kh, kw, stride, pad): ConvNeXt's stem and a
+# downsample on 63x63 images (B = 512), SpectraNet's bank convolutions and
+# its 1x1 downsample (conv1d as a 1 x L image) on that spectra block
+INT8_CONVS = (("ConvNeXt stem 4x4/4 3->96", 512, 63, 63, 3, 96, 4, 4, 4, 0),
+              ("ConvNeXt downsample 2x2/2 96->192", 512, 15, 15, 96, 192, 2, 2, 2, 0),
+              ("SpectraNet stage 0 K=1021 1->64", SPEC_BLOCK, 1, 3481, 1, 64, 1, 1021, 1, 510),
+              ("SpectraNet stage 1 K=31 64->128", SPEC_BLOCK, 1, 870, 64, 128, 1, 31, 1, 15),
+              ("SpectraNet stage 1 K=251 64->128", SPEC_BLOCK, 1, 870, 64, 128, 1, 251, 1, 125),
+              ("SpectraNet downsample 1x1 192->64", SPEC_BLOCK, 1, 3481, 192, 64, 1, 1, 1, 0))
+INT8_CONV_TIMED = 3  # SpectraNet stage 1's K = 31 bank convolution
+# depthwise 7x7 pad 3 at each ConvNeXt stage on 63x63 images, B = 512
+INT8_DWCONVS = tuple((f"ConvNeXt dwconv 7x7 {h}x{h}x{c}", 512, h, h, c)
+                     for h, c in ((15, 96), (7, 192), (3, 384), (1, 768)))
+
+
+def _int8_inputs(rng, shape, dev):
+    import torch
+
+    return torch.from_numpy(rng.integers(-127, 128, size=shape).astype(np.int8)).to(dev)
+
+
+def _epilogue_inputs(rng, n, dev):
+    import torch
+
+    scale = torch.from_numpy(rng.uniform(1e-5, 1e-3, n).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    return scale, bias
+
+
+def _compare_int8(what: str, kernel_fn, twin_fn, scale, bias) -> float:
+    """The kernel against its twin: int32 accumulators bit for bit, then the
+    f32 and bf16 epilogues (bitwise expected; <= 1e-6 max|y| required).
+    Returns the largest relative difference of the epilogues."""
+    import torch
+
+    acc, want = kernel_fn(None, None, torch.int32), twin_fn(None, None, torch.int32)
+    if not torch.equal(acc, want):
+        raise SystemExit(f"int8 {what}: the int32 accumulators differ from the twin's "
+                         f"({int((acc != want).sum())} of {acc.numel()})")
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (bias, None):
+            got, ref = kernel_fn(scale, b, dtype).float(), twin_fn(scale, b, dtype).float()
+            err = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+            worst = max(worst, err)
+            if not err <= 1e-6:
+                raise SystemExit(f"int8 {what} {dtype} bias={b is not None}: max|d| / max|y| = "
+                                 f"{err:.3g} > 1e-6")
+    return worst
+
+
+def check_int8_kernels(card: str, dev) -> list[dict]:
+    """Phase 11a: each int8 kernel against its twin on the card at the
+    serving shapes, int8_gemm also against ``torch._int_mm`` where that
+    call takes the shape; then timed (ms, device_ms with the calls queued,
+    the twin, the bound, the library call)."""
+    import torch
+
+    from applecider_tpu_torch.ops import int8
+
+    rng = np.random.default_rng(11)
+    records = []
+
+    # the quantizer: f32 and bf16 activations of the attention's input
+    x = torch.from_numpy((rng.normal(size=(512 * 258, 128)) * 3).astype(np.float32)).to(dev)
+    x.view(-1)[:1024] = torch.arange(-512, 512, device=dev, dtype=torch.float32) + 0.5  # ties
+    inv = float(np.float32(127.0 / 7.5))
+    for xx in (x, x.to(torch.bfloat16)):
+        if not torch.equal(int8.quantize(xx, 1.0), int8.quantize_reference(xx, 1.0)) or \
+                not torch.equal(int8.quantize(xx, inv), int8.quantize_reference(xx, inv)):
+            raise SystemExit(f"int8_quantize differs from its twin in {xx.dtype}")
+    n = x.numel()
+    b_ms, b_by = bound_ms(5.0 * n, 0.0, "int8")
+    rec = dict(name="int8_quantize", route="cuda", source=INT8_SOURCE,
+               replaces="applecider_tpu/ops/quant.py:110 _quantize_input (XLA; no Pallas kernel)",
+               shape=f"({512 * 258}, 128) f32", dtype="float32", max_abs_err=0.0,
+               ms=time_ms(lambda: int8.quantize(x, inv)),
+               device_ms=time_ms(lambda: int8.quantize(x, inv), queued=True),
+               plain_ms=time_ms(lambda: int8.quantize_reference(x, inv)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    records.append(rec)
+    log(f"int8_quantize {rec['shape']}: bitwise equal to its twin (f32 and bf16, ties included); "
+        f"kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}) plain {rec['plain_ms']:.4f} ms "
+        f"bound {b_ms:.5f} ms ({b_by}) library none [{card}]")
+    del x
+
+    # the GEMM
+    for i, (what, M, K, N) in enumerate(INT8_GEMMS):
+        a, b = _int8_inputs(rng, (M, K), dev), _int8_inputs(rng, (N, K), dev)
+        scale, bias = _epilogue_inputs(rng, N, dev)
+        err = _compare_int8(what, lambda s, bb, dt: int8.gemm(a, b, s, bb, dt),
+                            lambda s, bb, dt: int8.gemm_reference(a, b, s, bb, dt), scale, bias)
+        takes_int_mm = M > 16 and K % 8 == 0 and N % 8 == 0
+        lib = ""
+        if takes_int_mm:
+            if not torch.equal(torch._int_mm(a, b.t()), int8.gemm(a, b, None, None, torch.int32)):
+                raise SystemExit(f"int8_gemm {what} differs from torch._int_mm")
+            lib = "; equal to torch._int_mm bit for bit"
+        log(f"int8_gemm {what} M={M} K={K} N={N}: int32 bitwise, epilogue max rel {err:.3g}{lib}")
+        if i == INT8_GEMM_TIMED:
+            b_ms, b_by = bound_ms(M * K + N * K + 2 * M * N + 8 * N, 2.0 * M * N * K, "int8")
+            rec = dict(name="int8_gemm", route="cuda", source=INT8_SOURCE,
+                       replaces="applecider_tpu/ops/quant.py:139 quant_dense (XLA; no Pallas kernel)",
+                       shape=f"M={M} K={K} N={N} -> bf16", dtype="int8", max_abs_err=err,
+                       ms=time_ms(lambda: int8.gemm(a, b, scale, bias, torch.bfloat16)),
+                       device_ms=time_ms(lambda: int8.gemm(a, b, scale, bias, torch.bfloat16),
+                                         queued=True),
+                       plain_ms=time_ms(lambda: int8.gemm_reference(a, b, scale, bias,
+                                                                    torch.bfloat16)),
+                       bound_ms=b_ms, bound_by=b_by,
+                       library_ms=time_ms(lambda: torch._int_mm(a, b.t())))
+            records.append(rec)
+            log(f"int8_gemm timed at {rec['shape']}: kernel {rec['ms']:.4f} ms (device "
+                f"{rec['device_ms']:.4f}) plain {rec['plain_ms']:.4f} ms bound {b_ms:.5f} ms "
+                f"({b_by}) torch._int_mm (int32 out, no epilogue) {rec['library_ms']:.4f} ms "
+                f"[{card}]")
+        del a, b
+
+    # the convolution
+    for i, (what, B, H, W, C, Cout, kh, kw, s, p) in enumerate(INT8_CONVS):
+        stride, pad = ((1, s), (0, p)) if H == 1 else ((s, s), (p, p))
+        x, w = _int8_inputs(rng, (B, H, W, C), dev), _int8_inputs(rng, (Cout, C, kh, kw), dev)
+        scale, bias = _epilogue_inputs(rng, Cout, dev)
+        err = _compare_int8(what, lambda sc, bb, dt: int8.conv2d(x, w, sc, bb, dt, stride, pad),
+                            lambda sc, bb, dt: int8.conv2d_reference(x, w, sc, bb, dt, stride, pad),
+                            scale, bias)
+        Ho = int8.conv_output_size(H, kh, stride[0], pad[0])
+        Wo = int8.conv_output_size(W, kw, stride[1], pad[1])
+        M, K = B * Ho * Wo, C * kh * kw
+        ms = time_ms(lambda: int8.conv2d(x, w, scale, bias, torch.bfloat16, stride, pad),
+                     iters=3, reps=3)
+        log(f"int8_conv {what} (M={M} K={K} N={Cout}): int32 bitwise, epilogue max rel {err:.3g}; "
+            f"kernel {ms:.4f} ms, {2.0 * M * Cout * K / ms / 1e9:.1f} TOPS [{card}]")
+        if i == INT8_CONV_TIMED:
+            b_ms, b_by = bound_ms(x.numel() + w.numel() + 2 * M * Cout + 8 * Cout,
+                                  2.0 * M * Cout * K, "int8")
+            rec = dict(name="int8_conv", route="cuda", source=INT8_SOURCE,
+                       replaces="applecider_tpu/ops/quant.py:165 quant_conv (XLA; no Pallas kernel)",
+                       shape=f"{what}: B={B} L={W} (M={M} K={K} N={Cout}) -> bf16", dtype="int8",
+                       max_abs_err=err,
+                       ms=time_ms(lambda: int8.conv2d(x, w, scale, bias, torch.bfloat16, stride,
+                                                      pad)),
+                       device_ms=time_ms(lambda: int8.conv2d(x, w, scale, bias, torch.bfloat16,
+                                                             stride, pad), queued=True),
+                       plain_ms=time_ms(lambda: int8.conv2d_reference(
+                           x, w, scale, bias, torch.bfloat16, stride, pad), iters=2, reps=3),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            records.append(rec)
+            log(f"int8_conv timed at {rec['shape']}: kernel {rec['ms']:.4f} ms (device "
+                f"{rec['device_ms']:.4f}) plain (float64) {rec['plain_ms']:.4f} ms bound "
+                f"{b_ms:.5f} ms ({b_by}) library none (PyTorch has no int8 convolution on CUDA) "
+                f"[{card}]")
+        del x, w
+
+    # the depthwise convolution
+    for i, (what, B, H, W, C) in enumerate(INT8_DWCONVS):
+        x, w = _int8_inputs(rng, (B, H, W, C), dev), _int8_inputs(rng, (C, 1, 7, 7), dev)
+        scale, bias = _epilogue_inputs(rng, C, dev)
+        err = _compare_int8(
+            what, lambda sc, bb, dt: int8.conv2d(x, w, sc, bb, dt, (1, 1), (3, 3), C),
+            lambda sc, bb, dt: int8.conv2d_reference(x, w, sc, bb, dt, (1, 1), (3, 3), C),
+            scale, bias)
+        log(f"int8_dwconv {what} B={B}: int32 bitwise, epilogue max rel {err:.3g}")
+        if i == 0:
+            n_out = B * H * W * C
+            b_ms, b_by = bound_ms(x.numel() + w.numel() + 2 * n_out + 8 * C,
+                                  2.0 * n_out * 49, "int8")
+            rec = dict(name="int8_dwconv", route="cuda", source=INT8_SOURCE,
+                       replaces="applecider_tpu/ops/quant.py:165 quant_conv, feature_group_count "
+                                "(XLA; no Pallas kernel)",
+                       shape=f"B={B} {H}x{W}x{C} 7x7 pad 3 -> bf16", dtype="int8",
+                       max_abs_err=err,
+                       ms=time_ms(lambda: int8.conv2d(x, w, scale, bias, torch.bfloat16, (1, 1),
+                                                      (3, 3), C)),
+                       device_ms=time_ms(lambda: int8.conv2d(x, w, scale, bias, torch.bfloat16,
+                                                             (1, 1), (3, 3), C), queued=True),
+                       plain_ms=time_ms(lambda: int8.conv2d_reference(
+                           x, w, scale, bias, torch.bfloat16, (1, 1), (3, 3), C)),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            records.append(rec)
+            log(f"int8_dwconv timed at {rec['shape']}: kernel {rec['ms']:.4f} ms (device "
+                f"{rec['device_ms']:.4f}) plain (float64) {rec['plain_ms']:.4f} ms bound "
+                f"{b_ms:.5f} ms ({b_by}) library none [{card}]")
+        del x, w
+    torch.cuda.empty_cache()
+    return records
+
+
+def _forward_ms(fn) -> dict:
+    """One call of ``fn`` (a whole forward) on the card: ``ms`` between CUDA
+    events around it (the host's launches included where they are
+    slower than the card), and ``device_ms``, the card's busy time in it:
+    its kernels' and copies' device time from ``torch.profiler``. (A
+    forward's ~1,000 launches overflow the launch queue, so they cannot be
+    queued behind a sleep of the card.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            busy_us += getattr(ev, "self_device_time_total", None) or \
+                getattr(ev, "self_cuda_time_total", 0.0)
+    return {"ms": start.elapsed_time(end), "device_ms": busy_us / 1e3}
+
+
+def int8_launches_a_forward(model, scales: dict) -> dict:
+    """Launches of each int8 kernel in one forward of ``model`` under
+    ``scales``: each layer with a scale quantizes its input once and runs
+    its product kernel once (a Linear the GEMM, a depthwise conv the
+    depthwise kernel, any other conv the convolution)."""
+    from applecider_tpu_torch.models.convnext import Conv2dTorch
+    from applecider_tpu_torch.models.layers import Linear
+
+    counts = dict.fromkeys(INT8_KERNELS, 0)
+    for name, m in model.named_modules():
+        if name.replace(".", "/") not in scales:
+            continue
+        counts["int8_quantize"] += 1
+        if isinstance(m, Linear):
+            counts["int8_gemm"] += 1
+        elif isinstance(m, Conv2dTorch) and m.groups > 1:
+            counts["int8_dwconv"] += 1
+        else:
+            counts["int8_conv"] += 1
+    return counts
+
+
+@contextlib.contextmanager
+def int8_held_to_twins(held: dict):
+    """While on, every call of ``ops.int8``'s ``quantize``, ``gemm`` and
+    ``conv2d`` (the dense and the depthwise convolution) returns its
+    kernel's result only after holding it against the twin on the same
+    inputs: the int8 codes and the int32 accumulators bit for bit, the
+    dequantized output within 1e-6 max|y|. ``held`` counts the calls
+    (``quantize``/``gemm``/``conv``) and keeps the largest relative
+    difference of an output (``err``)."""
+    import torch
+
+    from applecider_tpu_torch.ops import int8
+
+    quantize, gemm, conv2d = int8.quantize, int8.gemm, int8.conv2d
+
+    def held_quantize(x, inv):
+        q = quantize(x, inv)
+        if not torch.equal(q, int8.quantize_reference(x, inv)):
+            raise SystemExit(f"int8_quantize differs from its twin on the path's {tuple(x.shape)}")
+        held["quantize"] += 1
+        return q
+
+    def holding(kernel, twin, kind):
+        def call(qx, qw, scale, bias, out_dtype, *conv):
+            y = kernel(qx, qw, scale, bias, out_dtype, *conv)
+            acc = twin(qx, qw, None, None, torch.int32, *conv)
+            if not torch.equal(kernel(qx, qw, None, None, torch.int32, *conv), acc):
+                raise SystemExit(f"int8 {kind} {tuple(qx.shape)} x {tuple(qw.shape)} {conv}: the "
+                                 "int32 accumulators differ from the twin's on the path's inputs")
+            want = int8.epilogue_reference(acc, scale, bias, out_dtype).float()
+            err = float((y.float() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            if not err <= 1e-6:
+                raise SystemExit(f"int8 {kind} {tuple(qx.shape)} x {tuple(qw.shape)}: the output "
+                                 f"differs from the twin's by {err:.3g} max|y| (> 1e-6)")
+            held[kind] += 1
+            held["err"] = max(held["err"], err)
+            return y
+        return call
+
+    int8.quantize = held_quantize
+    int8.gemm = holding(gemm, int8.gemm_reference, "gemm")
+    int8.conv2d = holding(conv2d, int8.conv2d_reference, "conv")
+    try:
+        yield held
+    finally:
+        int8.quantize, int8.gemm, int8.conv2d = quantize, gemm, conv2d
+
+
+def check_int8_serving(card: str, model, model32, raw: dict, tmp: Path,
+                       batch_size: int = SERVE_BATCH, n_parity: int = 256,
+                       model_overrides: dict | None = None) -> dict:
+    """Phase 11b: phase 3b's raw corpus served with ``int8=True`` from its
+    directories through ``serve_alert_stream`` (bf16 weights; the counted
+    run: each int8 kernel's launches = the quantized layers x the batches,
+    no layer with a scale on the float path), then through
+    ``AppleCiderRuntime.serve`` with ``[serve].int8 = true``; rows finite
+    and summing to 1; ``quant_error_report`` against the f32 serve (TF32
+    off) of the same alerts; in f32 on the first ``n_parity`` alerts, the
+    int8 kernel path against ``kernels=False`` (the twins) with the same
+    scales; then one 512-row batch per length bucket with every int8 kernel
+    call held against its twin on the same inputs (``int8_held_to_twins``)
+    and its device ms, int8 beside bf16. ``model_overrides`` (small widths)
+    is for a dry run on the CPU."""
+    import torch
+
+    from applecider_tpu_torch.infer.serve import iter_alert_samples, serve_alert_stream
+    from applecider_tpu_torch.infer.stream import LENGTH_BUCKETS, FusedSpectraStream
+    from applecider_tpu_torch.ops.quant import quant_error_report
+    from applecider_tpu_torch.testing import make_alert_samples
+    from applecider_tpu_torch.train.runtime import AppleCiderRuntime
+
+    dev = next(model.parameters()).device
+    on_card = dev.type == "cuda"
+    data_dir, pairs = raw["data_dir"], raw["pairs"]
+    n = len(pairs)
+
+    def probs(summary):
+        return np.stack([r["probs"] for r in summary["results"]])
+
+    def check_rows(p, what):
+        sums = p.sum(axis=1)
+        if p.shape != (n, model.num_classes) or not np.isfinite(p).all() \
+                or float(np.abs(sums - 1).max()) > 1e-3:
+            raise SystemExit(f"{what}: not finite rows of ({n}, {model.num_classes}) summing to 1 "
+                             "within 1e-3")
+
+    _sync(dev)
+    counters = zero_counters()
+    summary = serve_alert_stream(model, iter_alert_samples(data_dir), batch_size=batch_size,
+                                 device=dev, int8=True)
+    launches = _kernel_launches(counters)
+    scales, batches = summary["quant_scales"], summary["batches"]
+    p8 = probs(summary)
+    check_rows(p8, "int8 serving")
+    per_forward = int8_launches_a_forward(model, scales)
+    want = {k: v * batches for k, v in per_forward.items()}
+    log(f"int8 serving from the directories: {n} alerts in {summary['seconds']:.4f} s, "
+        f"{summary['alerts_per_sec']:.1f} alerts/s (phase 3b bf16: {raw['alerts_per_s']:.1f} "
+        f"alerts/s), calibration on the first 64 alerts included (batch_size={batch_size}, "
+        f"binned) [{card}]; {len(scales)} layers with a scale")
+    log(f"int8 launches in that run: {({k: launches[k] for k in INT8_KERNELS})}, expected "
+        f"{want} ({per_forward} a forward x {batches} batches); K1/K2/K3f "
+        f"{launches['merge_scan']}/{launches['masked_attention']}/{launches['ln_gelu_fwd']}")
+    if on_card and {k: launches[k] for k in INT8_KERNELS} != want:
+        raise SystemExit("int8 serving: the int8 kernels' launches are not one a quantized layer "
+                         "a batch (a layer with a scale took the float path)")
+
+    with no_tf32():
+        p32 = probs(serve_alert_stream(model32, iter(pairs), batch_size=batch_size, device=dev))
+        # the int8 path with its kernels against its plain twins, f32, the same scales
+        sub = [s for _, s in pairs[:n_parity]]
+        plain_router = FusedSpectraStream(model32, device=dev, kernels=False)
+        scales32 = plain_router.pipe.calibrate([plain_router.place(sub[:64],
+                                                                   length_buckets=LENGTH_BUCKETS)])
+        got, want = (FusedSpectraStream(model32, quantize_scales=scales32, device=dev,
+                                        kernels=k)(sub, length_buckets=LENGTH_BUCKETS)
+                     for k in (True, False))
+    err_plain = float(np.abs(got - want).max())
+    log(f"int8 f32 (TF32 off), {len(sub)} alerts: kernel path vs kernels=False (the int8 twins "
+        f"and the float twins) max|dprob| {err_plain:.3g} (<= 1e-2 required: an input a float "
+        f"twin moves by ~1e-6 may round to the next int8) [{card}]")
+    if not err_plain <= 1e-2:
+        raise SystemExit("int8 serving's kernel path disagrees with its plain path")
+    rep = quant_error_report(p32, p8)
+    log(f"int8 (bf16 weights) vs f32 (TF32 off) on the same {n} alerts: top-1 agreement "
+        f"{rep['top1_agreement']:.4f}, max |dp| {rep['max_abs_prob_diff']:.4f}, mean |dp| "
+        f"{rep['mean_abs_prob_diff']:.5f} [{card}]")
+
+    overrides = copy.deepcopy(model_overrides or {})
+    overrides.setdefault("model", {})["name"] = "AppleCider"
+    overrides["train"] = {"compute_dtype": "bfloat16"}
+    overrides["serve"] = {"int8": True, "batch_size": batch_size}
+    rt = AppleCiderRuntime(overrides=overrides, workdir=tmp / "results", device=dev)
+    served = rt.serve(raw_path=data_dir, params=model.state_dict())
+    p_rt = probs(served)
+    check_rows(p_rt, "rt.serve int8")
+    err_rt = float(np.abs(p_rt - p8).max())
+    rt_scales = served["quant_scales"]
+    err_scales = max(abs(rt_scales[k] / v - 1) for k, v in scales.items()) \
+        if set(rt_scales) == set(scales) else float("inf")
+    log(f"AppleCiderRuntime.serve with [serve].int8 = true: {served['n_alerts']} alerts, "
+        f"{served['alerts_per_sec']:.1f} alerts/s; max |dp| vs serve_alert_stream(int8=True) "
+        f"{err_rt:.3g} (<= 1e-3 required), its {len(rt_scales)} scales within {err_scales:.3g} "
+        f"relative of that run's (the same layers, <= 1e-2 required) [{card}]")
+    if not (err_rt <= 1e-3 and err_scales <= 1e-2):
+        raise SystemExit("rt.serve int8 disagrees with serve_alert_stream(int8=True)")
+
+    # one 512-row batch a length bucket: every int8 kernel call held against
+    # its twin on the path's own inputs, then device ms, int8 beside bf16
+    per_bucket = {}
+    held = {"quantize": 0, "gemm": 0, "conv": 0, "err": 0.0}
+    if on_card:
+        routers = {"bf16": FusedSpectraStream(model, device=dev),
+                   "int8": FusedSpectraStream(model, quantize_scales=scales, device=dev)}
+        lo = 0
+        for P in LENGTH_BUCKETS:
+            samples = make_alert_samples(batch_size, seed=P, spectrum_frac=0.3,
+                                         length_range=(lo + 1, P))
+            lo = P
+            placed = routers["bf16"].place(samples, length_buckets=(P,))
+            with int8_held_to_twins(held):
+                routers["int8"].pipe(placed)
+            per_bucket[P] = {k: _forward_ms(lambda r=r: r.pipe(placed)) for k, r in routers.items()}
+            i8, b16 = per_bucket[P]["int8"], per_bucket[P]["bf16"]
+            log(f"  one {batch_size}-row batch at length bucket {P} ({int(placed['spec_has'].sum())} "
+                f"spectra in a block of {placed['spec_has'].shape[0]}): int8 {i8['ms']:.3f} ms, device "
+                f"busy {i8['device_ms']:.3f} ms; bf16 {b16['ms']:.3f} ms, device busy "
+                f"{b16['device_ms']:.3f} ms [{card}]")
+        want_held = {"quantize": per_forward["int8_quantize"] * len(LENGTH_BUCKETS),
+                     "gemm": per_forward["int8_gemm"] * len(LENGTH_BUCKETS),
+                     "conv": (per_forward["int8_conv"] + per_forward["int8_dwconv"])
+                     * len(LENGTH_BUCKETS)}
+        log(f"int8 kernels held against their twins on the path's own inputs, one 512-row batch "
+            f"a length bucket: {held} (int8 codes and int32 accumulators bit for bit, outputs "
+            f"within {held['err']:.3g} max|y|; expected {want_held}) [{card}]")
+        if {k: held[k] for k in want_held} != want_held:
+            raise SystemExit("int8 serving: not every quantized layer was held against its twin")
+        torch.cuda.empty_cache()
+    return {"launches": launches, "alerts_per_s": summary["alerts_per_sec"],
+            "rt_alerts_per_s": served["alerts_per_sec"], "report": rep,
+            "device_ms_by_bucket": per_bucket, "layers": len(scales), "held": held}
+
+
 def main() -> int:
     import torch
 
@@ -3254,6 +3718,11 @@ def main() -> int:
         imported = check_imported_checkpoints(card, tmp / "import", raw["data_dir"],
                                               torch.device("cuda"))
         log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        records += check_int8_kernels(card, torch.device("cuda"))
+        (tmp / "int8").mkdir()
+        int8_served = check_int8_serving(card, model, model32, raw, tmp / "int8")
+        log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     for r in records:
         by_path = {"serving": serving["launches"][r["name"]],
                    "raw_serving": raw["launches"][r["name"]],
@@ -3268,9 +3737,11 @@ def main() -> int:
                    "export_serving": deployed["launches"][r["name"]],
                    "engine": engine["launches"][r["name"]],
                    "remat": remat["launches"][r["name"]],
-                   "imported_serve": imported["serve_launches"][r["name"]]}
+                   "imported_serve": imported["serve_launches"][r["name"]],
+                   "int8_serve": int8_served["launches"][r["name"]]}
         path = ("ladder" if r["name"].startswith(LADDER_PREFIX) else
-                "training" if r["name"] in TRAINING_KERNELS else "serving")
+                "training" if r["name"] in TRAINING_KERNELS else
+                "int8_serve" if r["name"] in INT8_KERNELS else "serving")
         r["launches"] = by_path[path]
         r["launches_by_path"] = by_path
     log(json.dumps({"kernels": records}))

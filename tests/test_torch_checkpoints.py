@@ -499,3 +499,96 @@ def test_converter_maps_astrominn_groups(tmp_path):
             torch.testing.assert_close(st["exp_avg_sq"], (1 - b2) * w * w, rtol=1e-5, atol=1e-12)
             seen += 1
     assert seen == len(names)
+
+
+# ------------------------------------- TriPool's norm layout, from the checkpoint
+TRI_LAYOUT = [False, True, False]  # BatchNorm, LayerNorm, BatchNorm
+
+
+def _tripool_fusion_cfgs(use_ln=None):
+    """(JAX config, port config) of the fusion model with a three-stage
+    TriPool spectra encoder; ``use_ln`` the layout the config names (None:
+    none named)."""
+    from applecider_tpu.config import load_defaults as jax_load_defaults
+    from tests.test_torch_pipeline import TINY
+
+    tri = {"channels": [2, 2, 2], "depths": [1, 1, 1], "kernel_sizes_per_stage": [[3, 5, 7]] * 3}
+    if use_ln is not None:
+        tri["use_ln_stages"] = list(use_ln)
+    jcfg, cfg = jax_load_defaults(), load_defaults()
+    for k, v in TINY + [("train.compute_dtype", "float32"),
+                        ("model.AppleCider.spectra_encoder", "tripool"),
+                        ("model.SpectraNetTriPool", tri)]:
+        jcfg.set(k, v)
+        cfg.set(k, v)
+    jcfg.set("model.BaselineCLS.dropout", 0.0)
+    jcfg.set("model.SpectraNetTriPool.conv_mode", "direct")
+    return jcfg, cfg
+
+
+@pytest.fixture(scope="module")
+def tripool_reference():
+    """(a reference-named fusion state_dict whose TriPool stages are
+    ``TRI_LAYOUT``, a batch, the JAX logits of ``fusion_reference_params``
+    on it)."""
+    import jax.numpy as jnp
+
+    from applecider_tpu.models.fusion import AppleCiderTask as JaxAppleCiderTask
+    from applecider_tpu_torch.models.spectranet import SPECTRUM_BINS
+
+    jcfg, cfg = _tripool_fusion_cfgs(TRI_LAYOUT)
+    fusion = build_fusion_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, b in fusion.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.3 * torch.randn(b.shape, generator=g))
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=g) * 1.5 + 0.5)
+    ref = {_fusion_ref_name(n): t.numpy().copy() for n, t in fusion.state_dict().items()}
+    assert "spectra_encoder.stage1.0.norm.running_mean" in ref
+    assert "spectra_encoder.stage2.0.norm.running_mean" not in ref
+    rng = np.random.default_rng(0)
+    B, P = 3, 20
+    batch = (rng.normal(size=(B, P, 7)).astype(np.float32),
+             np.arange(P)[None, :] >= rng.integers(8, P + 1, size=B)[:, None],
+             rng.normal(size=(B, 24)).astype(np.float32),
+             rng.normal(size=(B, 63, 63, 3)).astype(np.float32),
+             rng.normal(size=(B, SPECTRUM_BINS)).astype(np.float32))
+    prefix = "img_metadata_encoder.image_tower.backbone."  # the JAX converter's layout
+    canonical = {k: v for k, v in ref.items() if not k.startswith(prefix)}
+    canonical.update({prefix + k: v for k, v in torch_port.rename_timm_convnext_sd(
+        {k[len(prefix):]: v for k, v in ref.items() if k.startswith(prefix)}).items()})
+    params, stats = jax_port.fusion_reference_params(
+        canonical, photometry_layers=1, spectra_depths=(1, 1, 1), astrominn_backbone_depths=(1, 1))
+    jtask = JaxAppleCiderTask(jcfg)
+    want = np.asarray(jax.jit(lambda v, *b: jtask.module.apply(v, *b, deterministic=True))(
+        {"params": params, "batch_stats": stats}, *map(jnp.asarray, batch)))
+    return ref, batch, want
+
+
+@pytest.mark.parametrize("named", ["wrongly", "not"])
+def test_reference_fusion_follows_the_checkpoints_tripool_layout(tripool_reference, named):
+    """A reference-named fusion checkpoint with mixed BatchNorm/LayerNorm
+    TriPool stages imports whether the config names the layout wrongly
+    (a warning names both) or not at all; the model built from the layout
+    read gives the JAX ``fusion_reference_params`` logits within 1e-5."""
+    import warnings
+
+    ref, batch, want = tripool_reference
+    _, cfg = _tripool_fusion_cfgs([True] * 3 if named == "wrongly" else None)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state = importer.import_checkpoint(ref, "AppleCider", cfg)
+    said = [str(w.message) for w in caught if "use_ln_stages" in str(w.message)]
+    if named == "wrongly":
+        assert len(said) == 1 and "[true, true, true]" in said[0] and \
+            "[false, true, false]" in said[0], said
+    else:
+        assert not said
+    assert cfg.get_path("model.SpectraNetTriPool.use_ln_stages") == TRI_LAYOUT
+    port = build_fusion_model(cfg, device="cpu")
+    port.load_state_dict(state)
+    with torch.no_grad():
+        got = port(*map(torch.from_numpy, batch)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -28,7 +28,7 @@ from applecider_tpu_torch.models import build_fusion_model
 from applecider_tpu_torch.models.fusion import AppleCiderModule
 from applecider_tpu_torch.ops import attention, ln_gelu, merge_scan
 from applecider_tpu_torch.testing import make_alert_samples, make_corpus
-from applecider_tpu_torch.train.runtime import AppleCiderRuntime
+from applecider_tpu_torch.train.runtime import AppleCiderRuntime, load_serving_programs
 from applecider_tpu_torch.utils.weights import from_jax_params
 from tests.test_torch_pipeline import GRID, TINY, _flax_params, pair  # noqa: F401  (fixture)
 from tests.test_torch_runtime import BATCH, _runtime, prepared  # noqa: F401  (fixture)
@@ -76,8 +76,9 @@ def served(pair, corpus, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def loaded(served):
-    """The serving program, loaded from its ``.pt2``."""
-    return torch.export.load(served[1] / f"serving_P{BUCKET}.pt2").module()
+    """The serving program, loaded from its ``.pt2`` and bound to the
+    artifact's ``params/``."""
+    return load_serving_programs(served[1], device="cpu")[BUCKET]
 
 
 def _probs(summary) -> np.ndarray:
@@ -117,6 +118,32 @@ def test_serving_graph_holds_the_kernel_ops(served):
     program = torch.export.load(out / f"serving_P{BUCKET}.pt2")
     # K1 once, K2 once a transformer layer, K3f once a SpectraNet block
     assert _op_nodes(program) == {"seg_ids": 1, "masked_attention": 1, "ln_gelu_fwd": 2}
+
+
+def test_export_serving_writes_the_weights_once(corpus, tmp_path):
+    """The weights go once into ``params/``, and a program carries none of
+    them: the ``.pt2`` is smaller than the saved params, and the artifact
+    is under params + 5 x the program, and under twice the params (a
+    program that held the weights would pass neither). The
+    programs serve the same rows as the live serve. The image backbone is
+    widened to [128, 256] so that the params outweigh one program's graph."""
+    overrides = json.loads(json.dumps(SERVING_TINY))
+    overrides["model"]["AstroMiNN"]["backbone_dims"] = [128, 256]
+    rt = AppleCiderRuntime(overrides=overrides, workdir=tmp_path / "results", device="cpu")
+    model = rt._fusion_task().module.eval().requires_grad_(False)
+    buckets = (BUCKET,)
+    out = rt.export_serving(out_path=tmp_path / "exp", length_buckets=buckets,
+                            params=model.state_dict(), wave_grid=GRID)
+    params = (out / "params" / "model.pt").stat().st_size
+    programs = [(out / f"serving_P{P}.pt2").stat().st_size for P in buckets]
+    assert max(programs) < params
+    total = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
+    assert total < params + 5 * max(programs)
+    assert total < 2 * params  # one copy of the weights: a copy a bucket would double them
+    summary = rt.engine_serving(export_dir=out, raw_path=corpus, batch_size=4)
+    live = serve_alert_stream(model, iter_alert_samples(corpus), batch_size=4,
+                              length_buckets=buckets, wave_grid=GRID, device="cpu")
+    np.testing.assert_allclose(_probs(summary), _probs(live), rtol=2e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("n", [1, 4, 7])
@@ -284,6 +311,7 @@ def test_full_width_serving_program_matches_jax(tmp_path):
                                  spectrum_points=(80, 2000))
     raw = ts.pack_alert_batch(samples, max_photo=257)
     with torch.inference_mode():
-        got = program.module()({k: torch.from_numpy(v) for k, v in raw.items()}).numpy()
+        got = load_serving_programs(out, device="cpu")[257](
+            {k: torch.from_numpy(v) for k, v in raw.items()}).numpy()
     want = np.asarray(js.AlertStreamPipeline(task)(params, raw))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

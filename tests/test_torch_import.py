@@ -27,6 +27,8 @@ MODULES = [
     "applecider_tpu_torch.ops.conv1d",
     "applecider_tpu_torch.ops.moe",
     "applecider_tpu_torch.ops.metrics",
+    "applecider_tpu_torch.ops.int8",
+    "applecider_tpu_torch.ops.quant",
     "applecider_tpu_torch.models",
     "applecider_tpu_torch.models.layers",
     "applecider_tpu_torch.models.time2vec",
@@ -223,3 +225,21 @@ def test_kernel_wrappers_take_cpu_or_cuda_only():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention.flash_backward(q.to("meta"), q.to("meta"), q.to("meta"), None, 0.4,
                                        q.to("meta"), seed=1)
+    from applecider_tpu_torch.models.layers import Linear
+    from applecider_tpu_torch.ops import int8, quant
+
+    assert int8.quantize(t, 1.0).dtype == torch.int8
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        int8.quantize(t.to("meta"), 1.0)
+    a = torch.zeros((3, 8), dtype=torch.int8)
+    assert int8.gemm(a, a, None, None, torch.int32).dtype == torch.int32
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        int8.gemm(a.to("meta"), a.to("meta"), None, None, torch.int32)
+    x = torch.zeros((1, 5, 5, 4), dtype=torch.int8)
+    for w, groups in ((torch.zeros((4, 4, 3, 3), dtype=torch.int8), 1),
+                      (torch.zeros((4, 1, 3, 3), dtype=torch.int8), 4)):
+        assert int8.conv2d(x, w, None, None, torch.int32, groups=groups).shape == (1, 3, 3, 4)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            int8.conv2d(x.to("meta"), w.to("meta"), None, None, torch.int32, groups=groups)
+    with quant.quantized({"": 1.0}), pytest.raises(ValueError, match="CUDA tensors"):
+        Linear(8, 4).to("meta")(torch.zeros((2, 8), device="meta"))

@@ -269,7 +269,6 @@ def test_warmup_without_a_trained_run_warns(prepared, tmp_path):
     ("model/name", "GalSpecNet", "train"),
     ("parallel/multihost/enable", True, "train"),
     ("parallel/mesh_shape", [2, 4], "train"),
-    ("serve/int8", True, "serve"),
     ("model/name", "SpectraConvNeXt", "train"),
 ])
 def test_unported_options_raise(prepared, tmp_path, key, value, verb):

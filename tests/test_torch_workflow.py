@@ -346,3 +346,34 @@ def test_registry_resolves_fusion_names_and_refuses_the_rest():
         registry.get_model("applecider_tpu.models.zoo.MetaModel")
     with pytest.raises(KeyError, match="No dataset_class"):
         registry.builder_from_config(load_config(), "train")
+
+
+@pytest.mark.parametrize("oversample", [False, True])
+def test_photo_events_dataset_accessors_match_jax(tmp_path, oversample):
+    """The per-field accessors of the JAX data set (``ids``,
+    ``get_object_id``, ``get_label``, ``get_photometry``, ``get_mean``,
+    ``get_std``) give the JAX values at every index, oversampled indices
+    resolved as JAX resolves them; ``sample`` is built from them."""
+    from applecider_tpu.config import load_defaults as jax_load_defaults
+    from applecider_tpu.datasets.photo_dataset import PhotoEventsDataset as JaxPhotoEventsDataset
+    from applecider_tpu_torch.config import load_defaults
+    from applecider_tpu_torch.datasets.photo_dataset import PhotoEventsDataset
+    from tests.test_torch_trainer_options import _write_manifest
+
+    manifest = _write_manifest(tmp_path, "m", 12, 3)
+    over = {"data_set": {PhotoEventsDataset.SECTION: {
+        "manifest_path": str(manifest), "use_oversampling": oversample, "max_len": 48}}}
+    want = JaxPhotoEventsDataset(jax_load_defaults().merged_with(over))
+    got = PhotoEventsDataset(load_defaults().merged_with(over))
+    assert len(got) == len(want) and (len(got) > 12) == oversample
+    assert list(got.ids()) == list(want.ids())
+    for i in range(len(want)):
+        assert got.get_object_id(i) == want.get_object_id(i)
+        assert got.get_label(i) == want.get_label(i)
+        np.testing.assert_array_equal(got.get_photometry(i), want.get_photometry(i))
+        np.testing.assert_array_equal(got.get_mean(i), want.get_mean(i))
+        np.testing.assert_array_equal(got.get_std(i), want.get_std(i))
+        g, w = got.sample(i), want.sample(i)
+        assert g.keys() == w.keys() and g["label"] == w["label"]
+        for k in ("photometry", "mean", "std"):
+            np.testing.assert_array_equal(g[k], w[k])
