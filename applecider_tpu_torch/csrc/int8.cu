@@ -15,36 +15,62 @@
 //  * ac_int8_quantize: q = clamp(rint(x * inv), -127, 127) as int8, the
 //    product one f32 rounding (__fmul_rn: nvcc may contract nothing), rint
 //    half to even as jnp.round;
-//  * the products accumulate exactly in int32 (|acc| <= K * 127^2 < 2^31 for
-//    K < 133,144; the serving path's largest K is SpectraNet stage 1's 64 *
-//    251 = 16,064 taps x channels);
+//  * the products accumulate exactly in int32, in any order (|acc| <= K *
+//    127^2 < 2^31 for K < 133,144; the serving path's largest K is
+//    SpectraNet stage 1's 64 * 251 = 16,064 taps x channels);
 //  * the epilogue: y = float(acc) * scale[n] (+ bias[n]), each one f32
 //    rounding (__int2float_rn, __fmul_rn, __fadd_rn), then the output dtype
 //    (f32, bf16 round to nearest even); out dtype 2 writes the raw int32
 //    accumulators instead (the check of the products alone).
 //
-// Bounds on the H100. The GEMM and the convolutions do 2 * M * N * K
-// integer operations against 1,979 TOPS of dense int8 tensor-core rate;
-// at the serving shapes (e.g. the photometry in_proj, M = 512 * 258, K =
-// 128, N = 384, or SpectraNet's bank convolutions, K up to 16,064) the
-// operations bound them. The quantizer and the depthwise convolution move
-// bytes: 5 (f32 in, int8 out) or 3 (bf16) bytes an element, and the
-// depthwise 7x7's 49 MACs an output are far below the byte time.
+// Bounds on the H100. The GEMM and the convolution do 2 * M * N * K integer
+// operations against 1,979 TOPS of dense int8 tensor-core rate and move
+// M * K + N * K bytes in and M * N outputs out at 3.35 TB/s. SpectraNet's
+// bank convolutions (K = 3 to 1,021 taps, 1 to 512 channels, ~1.3 int8
+// TOPs a 193-spectra block) are bound by operations; the photometry
+// transformer's GEMMs (M = 512 * 258 rows, K = 128 or 512) by bytes, most
+// of them the bf16 output (101 MB at N = 384: 0.030 ms). The quantizer and
+// the depthwise convolution move bytes: 5 (f32 in, int8 out) or 3 (bf16)
+// bytes an element, and the depthwise 7x7's 49 MACs an output are far
+// below the byte time.
 //
-// Design: right first, simple, no tensor cores (their redesign is a later
-// item). The GEMM and the convolution share one tiled kernel: a block of
-// 256 threads computes a 64 x 64 tile of the (M, N) output, each thread 4 x
-// 4 outputs, over K in steps of 32 bytes staged in shared memory as words of
-// 4 consecutive k (k-major, so a warp reads a row of words without bank
-// conflicts), multiplied with __dp4a (4 int8 products summed into int32 per
-// instruction). The A operand comes through a loader: GemmA reads a
-// row-major (M, K) int8 matrix, ConvA gathers the implicit-GEMM row of an
-// NHWC int8 image (row m = (b, ho, wo), column k = (r, s, c) of the weight
-// in (Cout, kh, kw, Cin) order), zero where the window reads padding. Rows
-// whose K (or channel count) is a multiple of 4 load a word at once; other
-// rows (K = 7, 19; Cin = 1, 3) assemble words byte by byte. Conv1d runs as
-// a 1 x L image. The depthwise kernel is a thread per output: its 49 taps
-// read the channel's pixels, consecutive threads on consecutive channels.
+// Design of the GEMM and the convolution: one kernel, igemm_kernel<T,
+// ALoader, BN>, on the int8 tensor cores (mma.sync m16n8k32, s8 x s8 ->
+// s32). A block of 8 warps computes a 128 x BN tile of the (M, N) output:
+// BN = 128, each warp 64 x 32 outputs (16 mma a k32 step), or, where N <= 64
+// (SpectraNet stage 0 and its 1x1, N = 64; the router, N = 4), BN = 64,
+// each warp 32 x 32 (8 mma). K streams through a ring of 4 stages of 64
+// bytes of K in shared memory (A 128 rows, B BN rows of 64 bytes; 16-byte
+// chunks XOR-swizzled so that ldmatrix reads 8 rows without bank
+// conflicts), filled 3 stages ahead of the products. ldmatrix (.b16, rows of 16 bytes) loads
+// the fragments: the int8 m16n8k32 fragments are, byte for byte, the bf16
+// m16n8k16 ones. A chunk of 16 bytes of one row comes by one of three
+// routes, chosen once a launch:
+//  * cp.async.cg 16 bytes, zero-filled (src-size 0) past K, past the last
+//    row and where the window reads padding: the GEMM's A and every B where
+//    K % 16 == 0 and the base is 16-byte aligned (checked: a view can be
+//    misaligned); the convolution's A where C % 16 == 0 (16 channels of one
+//    tap: SpectraNet stages 1-4, ConvNeXt's downsamples) and x is aligned;
+//  * a run of bytes assembled from the aligned words that hold it
+//    (funnel shifts, bytes outside the run zeroed; no word outside the
+//    tensor is read): the same rows where K or the base is not aligned
+//    (the photometry in_proj K = 7, the metadata towers K = 19, the bank
+//    weights of SpectraNet stage 0, K = 3, 61, 1,021), and the
+//    convolution's A where C = 1 and kh = 1 (stage 0: a chunk is 16
+//    consecutive taps of one row of x, padding zeroed);
+//  * byte by byte, any other convolution (C = 3: ConvNeXt's stem).
+// In BN = 64 tiles the last two load A into registers before a stage's
+// products and store it to shared memory after them; elsewhere they store
+// at once, so that no registers are held across the products. Chunks past
+// K are zero in both operands, and a k32 step wholly past K is skipped:
+// short rows are padded to the next 32. Two blocks of 128 registers a
+// thread fit an SM. The epilogue's scale and bias columns are copied with
+// the first stage; it stages the tile in shared memory of its own, beside
+// the ring (64 or 128 rows at a time), and writes 16 bytes a thread where
+// N * sizeof(T) % 16 == 0, else element by element. Conv1d
+// runs as a 1 x L image. The depthwise kernel is a thread per output: its
+// 49 taps read the channel's pixels, consecutive threads on consecutive
+// channels.
 #include <type_traits>
 
 #include "common.cuh"
@@ -52,132 +78,451 @@
 namespace {
 
 constexpr int AC_I32 = 2;  // out dtype code: the int32 accumulators, no epilogue
-constexpr int kThreads = 256;
-constexpr int kBM = 64;   // output rows of a tile
-constexpr int kBN = 64;   // output columns of a tile
-constexpr int kBKW = 8;   // words of 4 k staged a step: 32 bytes of K
+constexpr int kThreads = 256;  // the quantizer and the depthwise kernel
+constexpr int kBM = 128;       // output rows of a tile
+constexpr int kBK = 64;        // bytes of K a stage
+constexpr int kChunks = kBK / 16;
+constexpr int kStages = 4;
 
-__device__ __forceinline__ int pack_byte(int word, int8_t v, int t) {
-  return word | (static_cast<int>(static_cast<uint8_t>(v)) << (8 * t));
+// the convolution's A routes (see the note above)
+enum ConvMode : int { kRun16 = 0, kRun1 = 1, kBytes = 2 };
+
+bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The word of k0 .. k0 + 3 (k0 a multiple of 4) of row `row` of a
-// row-major (rows, K) int8 matrix, zero past its edges.
-__device__ __forceinline__ int matrix_word(const int8_t* __restrict__ p, int64_t row, int64_t rows,
-                                           int K, int k0, bool aligned) {
-  if (row >= rows || k0 >= K) return 0;
-  const int8_t* r = p + row * static_cast<int64_t>(K);
-  if (aligned) return *reinterpret_cast<const int*>(r + k0);  // K % 4 == 0: k0 + 3 < K
-  int word = 0;
+// Byte offset of 16-byte chunk c (0..3) of row r in a tile of 64-byte rows:
+// the eight rows one ldmatrix reads fall in distinct banks.
+__device__ __forceinline__ int swz(int r, int c) { return r * kBK + 16 * (c ^ ((r >> 1) & 3)); }
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8 x 16-byte matrices; lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a.b: m16n8k32, s8 operands, s32 accumulation. Lane l = 4g + t holds
+// a = {(g, 4t..4t+3), (g+8, 4t..), (g, 4t+16..), (g+8, 4t+16..)}, b = {(k
+// 4t..4t+3, n g), (k 4t+16.., n g)}, d = {(g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1)}.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bytes [lo, hi) of the 16 at p, zero elsewhere (none if lo >= hi). Reads
+// only the aligned words that hold a byte of [p + lo, p + hi), so p may
+// point before or past the tensor where lo and hi keep to it.
+__device__ __forceinline__ uint4 load_run(const int8_t* p, int lo, int hi) {
+  uint32_t o[4] = {0u, 0u, 0u, 0u};
+  if (lo < hi) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+    const int sh = static_cast<int>(addr & 3);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(addr - sh);
+    uint32_t v[5];
+    if (lo == 0 && hi == 16) {  // a whole chunk: no bytes to clear
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
-    if (k0 + t < K) word = pack_byte(word, r[k0 + t], t);
-  return word;
+      for (int j = 0; j < 4; ++j) v[j] = __ldg(w + j);
+      v[4] = sh ? __ldg(w + 4) : 0u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) o[q] = __funnelshift_r(v[q], v[q + 1], 8 * sh);
+    } else {
+      const int j0 = (lo + sh) >> 2, j1 = (hi - 1 + sh) >> 2;
+#pragma unroll
+      for (int j = 0; j < 5; ++j) v[j] = (j >= j0 && j <= j1) ? __ldg(w + j) : 0u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int a = min(max(lo - 4 * q, 0), 4), b = min(max(hi - 4 * q, 0), 4);
+        const uint32_t keep = static_cast<uint32_t>((1ull << (8 * b)) - 1ull) &
+                              ~static_cast<uint32_t>((1ull << (8 * a)) - 1ull);
+        o[q] = __funnelshift_r(v[q], v[q + 1], 8 * sh) & keep;
+      }
+    }
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
+// A chunk of 16 bytes of K of one row: a run of bytes [lo, hi) at p, or
+// (run() false) bytes assembled by the loader one at a time. A loader's
+// Cursor is a thread's k0 (the chunk's first column) as the stages of K
+// advance, kBK bytes a step, with what the loader derives from it.
+struct Run {
+  const int8_t* p;
+  int lo, hi;
+};
+
+// A of the GEMM: a row-major (M, K) int8 matrix.
 struct GemmA {
   const int8_t* a;
   int64_t M;
   int K;
-  bool aligned;
-  __device__ __forceinline__ int word(int64_t m, int k0) const {
-    return matrix_word(a, m, M, K, k0, aligned);
+  bool async;  // K % 16 == 0 and a 16-byte aligned: a chunk is whole or past K
+  struct Row {
+    const int8_t* p;
+    bool ok;
+  };
+  struct Cursor {
+    int k0;
+  };
+  __device__ __forceinline__ Cursor cursor(int k0) const { return {k0}; }
+  __device__ __forceinline__ void advance(Cursor& k) const { k.k0 += kBK; }
+  __device__ __forceinline__ Row row(int64_t m) const { return {a + (m < M ? m : 0) * K, m < M}; }
+  __device__ __forceinline__ bool run(const Row& r, const Cursor& k, Run& c) const {
+    c = {r.p + k.k0, 0, r.ok ? min(16, K - k.k0) : 0};
+    return true;
   }
+  __device__ __forceinline__ uint4 bytes(const Row&, int) const { return make_uint4(0, 0, 0, 0); }
 };
 
+// A of the convolution: row m = (b, ho, wo), column k = (r, s, c) of the
+// implicit-GEMM matrix of an NHWC int8 image against a (Cout, kh, kw, C)
+// weight, zero where the window reads padding.
 struct ConvA {
   const int8_t* x;  // (B, H, W, C)
   int64_t M;        // B * Ho * Wo
   int H, W, C, Ho, Wo, kw, sh, sw, ph, pw, K;
-  bool aligned;     // C % 4 == 0 and x 4-byte aligned: a word is 4 channels of one tap
-  __device__ __forceinline__ int word(int64_t m, int k0) const {
-    if (m >= M || k0 >= K) return 0;
+  int mode;    // ConvMode
+  bool async;  // kRun16 and x 16-byte aligned
+  struct Row {
+    const int8_t* p;  // x[b, h0, w0, 0]; pixel (h0 + r, w0 + s) is at p + (r * W + s) * C
+    int h0, w0;       // the window's top-left pixel; h0 = kNoRow past the last row
+  };
+  static constexpr int kNoRow = -(1 << 30);  // every tap of the row reads padding
+  struct Cursor {
+    int k0, ch, s, r;  // kRun16: k0 is channel ch of tap (r, s),
+    int off;           // at off = (r * W + s) * C + ch from a row's p
+  };
+  __device__ __forceinline__ Cursor cursor(int k0) const {
+    const int tap = k0 / C, ch = k0 - tap * C, s = tap % kw, r = tap / kw;
+    return {k0, ch, s, r, (r * W + s) * C + ch};
+  }
+  __device__ __forceinline__ void advance(Cursor& k) const {
+    k.k0 += kBK;
+    if (mode != kRun16) return;
+    for (k.ch += kBK; k.ch >= C; k.ch -= C) {  // C >= 16: at most 4 taps a step
+      if (++k.s == kw) {
+        k.s = 0;
+        ++k.r;
+      }
+    }
+    k.off = (k.r * W + k.s) * C + k.ch;
+  }
+  __device__ __forceinline__ Row row(int64_t m) const {
+    const bool ok = m < M;
+    if (!ok) m = 0;
     const int64_t hw = static_cast<int64_t>(Ho) * Wo;
-    const int64_t b = m / hw;
-    const int rem = static_cast<int>(m - b * hw);
-    const int ho = rem / Wo, wo = rem - (rem / Wo) * Wo;
-    if (aligned) {
-      const int tap = k0 / C, c = k0 - tap * C;
-      const int h = ho * sh - ph + tap / kw, w = wo * sw - pw + tap % kw;
-      if (h < 0 || h >= H || w < 0 || w >= W) return 0;
-      return *reinterpret_cast<const int*>(x + ((b * H + h) * static_cast<int64_t>(W) + w) * C + c);
+    int64_t b;
+    int rem;
+    if (M <= 0x7fffffff) {  // 32-bit division where it will do
+      b = static_cast<uint32_t>(m) / static_cast<uint32_t>(hw);
+      rem = static_cast<int>(m - b * hw);
+    } else {
+      b = m / hw;
+      rem = static_cast<int>(m - b * hw);
     }
-    int word = 0;
+    const int ho = rem / Wo, wo = rem - ho * Wo;
+    const int h0 = ok ? ho * sh - ph : kNoRow, w0 = wo * sw - pw;
+    return {x + ((b * H + h0) * static_cast<int64_t>(W) + w0) * C, h0, w0};
+  }
+  __device__ __forceinline__ bool run(const Row& r, const Cursor& k, Run& c) const {
+    if (mode == kRun16) {  // 16 channels of one tap
+      const int h = r.h0 + k.r, w = r.w0 + k.s;
+      const bool in = k.k0 < K && h >= 0 && h < H && w >= 0 && w < W;
+      c = {in ? r.p + k.off : x, 0, in ? 16 : 0};
+      return true;
+    }
+    if (mode == kRun1) {  // C = 1, kh = 1: taps k0.. are consecutive pixels of row h0
+      const int w = r.w0 + k.k0;
+      const bool in = r.h0 >= 0 && r.h0 < H;
+      c = {r.p + k.k0, max(0, -w), in ? min(16, min(W - w, K - k.k0)) : 0};
+      return true;
+    }
+    return false;
+  }
+  __device__ __forceinline__ uint4 bytes(const Row& r, int k0) const {
+    uint32_t o[4] = {0u, 0u, 0u, 0u};
+    if (k0 < K) {
+      const int tap = k0 / C;
+      int ch = k0 - tap * C, rr = tap / kw, s = tap - rr * kw;
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int k = k0 + t;
-      if (k >= K) break;
-      const int tap = k / C, c = k - tap * C;
-      const int h = ho * sh - ph + tap / kw, w = wo * sw - pw + tap % kw;
-      if (h >= 0 && h < H && w >= 0 && w < W)
-        word = pack_byte(word, x[((b * H + h) * static_cast<int64_t>(W) + w) * C + c], t);
+      for (int i = 0; i < 16; ++i) {
+        const int h = r.h0 + rr, w = r.w0 + s;
+        if (k0 + i < K && h >= 0 && h < H && w >= 0 && w < W)
+          o[i >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(r.p[(rr * W + s) * C + ch]))
+                       << (8 * (i & 3));
+        if (++ch == C) {
+          ch = 0;
+          if (++s == kw) {
+            s = 0;
+            ++rr;
+          }
+        }
+      }
     }
-    return word;
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  }
+};
+
+template <int BN>
+struct Tile {
+  static constexpr int kThreads = 256;
+  static constexpr int kWarpsN = BN / 32;        // warps along N, 32 outputs each
+  static constexpr int kWarpsM = 8 / kWarpsN;    // warps along M
+  static constexpr int kMT = kBM / 16 / kWarpsM;  // m16 tiles a warp: 64 or 32 rows
+  static constexpr int kAChunks = kBM * kChunks / kThreads;  // A chunks a thread loads a stage
+  static constexpr int kBChunks = BN * kChunks / kThreads;
+  static constexpr int kStageBytes = (kBM + BN) * kBK;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  // the epilogue stages kPassRows rows of the tile at a time: all 128 in
+  // bf16, 64 in f32 and int32, in rows padded by 8 outputs
+  template <typename T>
+  __host__ __device__ static constexpr int pass_rows() { return sizeof(T) == 2 ? kBM : kBM / 2; }
+  template <typename T>
+  __host__ __device__ static constexpr int out_row_bytes() {
+    return (BN + 8) * static_cast<int>(sizeof(T));
+  }
+  template <typename T>
+  __host__ __device__ static constexpr int epi_bytes() {
+    return pass_rows<T>() * out_row_bytes<T>();
+  }
+  // then the tile's scale and bias columns, f32
+  template <typename T>
+  __host__ __device__ static constexpr int smem_bytes() {
+    return kRingBytes + epi_bytes<T>() + 2 * BN * 4;
   }
 };
 
 template <typename T>
-__device__ __forceinline__ void store(T* __restrict__ out, int64_t idx, int acc, int n,
-                                      const float* __restrict__ scale,
-                                      const float* __restrict__ bias) {
+__device__ __forceinline__ T epilogue(int acc, float scale, float bias, bool has_bias) {
   if constexpr (std::is_same<T, int>::value) {
-    out[idx] = acc;
+    return acc;
   } else {
-    float y = __fmul_rn(__int2float_rn(acc), scale[n]);
-    if (bias != nullptr) y = __fadd_rn(y, bias[n]);
-    out[idx] = ac::from_f32<T>(y);
+    float y = __fmul_rn(__int2float_rn(acc), scale);
+    if (has_bias) y = __fadd_rn(y, bias);
+    return ac::from_f32<T>(y);
   }
 }
 
-// (M, N) = A (M, K) x B (N, K)^T, int8 in, int32 accumulated, then the
-// epilogue. A tile of kBM x kBN outputs a block; thread (tx, ty) of the
-// 16 x 16 grid owns rows ty + 16 i and columns tx + 16 j, i, j < 4.
-template <typename T, typename ALoader>
-__global__ void __launch_bounds__(kThreads) igemm_kernel(
-    ALoader a, const int8_t* __restrict__ bmat, const float* __restrict__ scale,
-    const float* __restrict__ bias, T* __restrict__ out, int N, bool b_aligned) {
-  __shared__ int As[kBKW][kBM];
-  __shared__ int Bs[kBKW][kBN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int K = a.K;
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+template <typename T>
+struct alignas(2 * sizeof(T)) Pair {
+  T v[2];
+};
 
-  for (int kb = 0; kb < K; kb += 4 * kBKW) {
+// (M, N) = A (M, K) x B (N, K)^T, int8 in, int32 accumulated on the tensor
+// cores, then the epilogue. Block blockIdx.x computes tile (blockIdx.x /
+// n_tiles, blockIdx.x % n_tiles): the N tiles of one row of tiles run side
+// by side and share its A rows in L2.
+template <typename T, typename ALoader, int BN>
+__global__ void __launch_bounds__(256, 2) igemm_kernel(
+    ALoader a, const int8_t* __restrict__ bmat, int N, bool b_async,
+    const float* __restrict__ scale, const float* __restrict__ bias, T* __restrict__ out,
+    bool out_vec) {
+  using Cfg = Tile<BN>;
+  constexpr int kT = Cfg::kThreads, kMT = Cfg::kMT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % Cfg::kWarpsM, wn = warp / Cfg::kWarpsM;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x / n_tiles) * kBM;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int K = a.K, nk = (K + kBK - 1) / kBK;
+  const int cc = tid & 3;  // the chunk of a stage's 64 bytes this thread loads
+
+  typename ALoader::Row arow[Cfg::kAChunks];
 #pragma unroll
-    for (int e = tid; e < kBKW * kBM; e += kThreads) {
-      const int row = e % kBM, kw = e / kBM;
-      As[kw][row] = a.word(m0 + row, kb + 4 * kw);
-      Bs[kw][row] = matrix_word(bmat, n0 + row, N, K, kb + 4 * kw, b_aligned);
-    }
-    __syncthreads();
+  for (int j = 0; j < Cfg::kAChunks; ++j) arow[j] = a.row(m0 + (tid >> 2) + j * (kT / 4));
+  const int8_t* brow[Cfg::kBChunks];
+  bool bok[Cfg::kBChunks];
 #pragma unroll
-    for (int kw = 0; kw < kBKW; ++kw) {
-      int av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kw][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kw][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int j = 0; j < Cfg::kBChunks; ++j) {
+    const int n = n0 + (tid >> 2) + j * (kT / 4);
+    bok[j] = n < N;
+    brow[j] = bmat + static_cast<int64_t>(bok[j] ? n : 0) * K;
   }
+  // A chunks that cp.async does not copy wait in registers across a
+  // stage's products in BN = 64 tiles (SpectraNet stage 0's rows, assembled
+  // from words); elsewhere they, and B's, go to shared memory at once, which
+  // keeps the 128 x 128 tiles within 128 registers a thread
+  constexpr bool kHoldA = BN == 64;
+  uint4 held_a[Cfg::kAChunks];
+  typename ALoader::Cursor kc = a.cursor(16 * cc);
+
+  // the next step of K (kc) into ring slot `slot`: cp.async chunks go
+  // straight to shared memory, the others as said above
+  auto fetch = [&](int slot) {
+    unsigned char* const as = smem + slot * Cfg::kStageBytes;
+    unsigned char* const bs = as + kBM * kBK;
+    const int k0 = kc.k0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t m = m0 + ty + 16 * i;
-    if (m >= a.M) continue;
+    for (int j = 0; j < Cfg::kAChunks; ++j) {
+      const int r = (tid >> 2) + j * (kT / 4);
+      Run c;
+      uint4 v;
+      if (!a.run(arow[j], kc, c)) {
+        v = a.bytes(arow[j], k0);
+      } else if (a.async) {
+        const bool full = c.hi == 16;
+        cp_async16(smem_u32(as + swz(r, cc)), full ? c.p : bmat, full);
+        continue;
+      } else {
+        v = load_run(c.p, c.lo, c.hi);
+      }
+      if (kHoldA)
+        held_a[j] = v;
+      else
+        *reinterpret_cast<uint4*>(as + swz(r, cc)) = v;
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) store<T>(out, m * N + n, acc[i][j], n, scale, bias);
+    for (int j = 0; j < Cfg::kBChunks; ++j) {
+      const int r = (tid >> 2) + j * (kT / 4);
+      const int hi = bok[j] ? min(16, K - k0) : 0;
+      if (b_async)
+        cp_async16(smem_u32(bs + swz(r, cc)), hi == 16 ? brow[j] + k0 : bmat, hi == 16);
+      else
+        *reinterpret_cast<uint4*>(bs + swz(r, cc)) = load_run(brow[j] + k0, 0, hi);
+    }
+    a.advance(kc);
+  };
+  auto store_held = [&](int slot) {
+    if (kHoldA && !a.async) {
+      unsigned char* const as = smem + slot * Cfg::kStageBytes;
+#pragma unroll
+      for (int j = 0; j < Cfg::kAChunks; ++j)
+        *reinterpret_cast<uint4*>(as + swz((tid >> 2) + j * (kT / 4), cc)) = held_a[j];
+    }
+  };
+
+  int acc[kMT][4][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  // the epilogue's scale and bias columns come with the first stage
+  unsigned char* const epi = smem + Cfg::kRingBytes;
+  float* const sb = reinterpret_cast<float*>(epi + Cfg::template epi_bytes<T>());  // scale, bias
+  const bool has_bias = bias != nullptr;
+  if constexpr (!std::is_same<T, int>::value) {
+    if (tid < 2 * BN && (tid < BN || has_bias)) {
+      const int n = n0 + tid % BN;
+      const float* src = tid < BN ? scale : bias;
+      cp_async4(smem_u32(sb + tid), n < N ? src + n : src, n < N);
+    }
+  }
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) {
+      fetch(s);
+      store_held(s);
+    }
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int pf = kt + kStages - 1;  // refills the slot read in step kt - 1
+    if (pf < nk) fetch(pf % kStages);
+    cp_async_commit();
+    const uint32_t as = smem_u32(smem + (kt % kStages) * Cfg::kStageBytes), bs = as + kBM * kBK;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      if (kt * kBK + 32 * ks >= K) break;
+      uint32_t b[4][2];
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        ldsm_x4(r, bs + swz(wn * 32 + np * 16 + (lane & 7) + ((lane >> 4) & 1) * 8,
+                            2 * ks + ((lane >> 3) & 1)));
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        uint32_t af[4];
+        ldsm_x4(af, as + swz(wm * 16 * kMT + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                             2 * ks + (lane >> 4)));
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af, b[nt][0], b[nt][1]);
+      }
+    }
+    if (pf < nk) store_held(pf % kStages);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // sb has arrived (no step of K waited for it where K = 0)
+
+  // the epilogue: kPassRows rows of the tile at a time through `epi`, its
+  // own shared memory, then 16-byte stores
+  constexpr int kRow = Cfg::template out_row_bytes<T>();
+  constexpr int kPassRows = Cfg::template pass_rows<T>();
+  const int g = lane >> 2, t4 = lane & 3;
+  float sc[4][2], bi[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = wn * 32 + nt * 8 + 2 * t4 + e;
+      sc[nt][e] = std::is_same<T, int>::value ? 0.f : sb[col];
+      bi[nt][e] = has_bias ? sb[BN + col] : 0.f;
+    }
+#pragma unroll
+  for (int pass = 0; pass < kBM / kPassRows; ++pass) {
+    if (pass > 0) __syncthreads();  // the previous pass's rows are out
+    if (wm * 16 * kMT / kPassRows == pass) {  // this warp's rows are in the pass
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = wn * 32 + nt * 8 + 2 * t4;
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = wm * 16 * kMT + mt * 16 + g + 8 * half - pass * kPassRows;
+            Pair<T> p;
+            p.v[0] = epilogue<T>(acc[mt][nt][2 * half], sc[nt][0], bi[nt][0], has_bias);
+            p.v[1] = epilogue<T>(acc[mt][nt][2 * half + 1], sc[nt][1], bi[nt][1], has_bias);
+            *reinterpret_cast<Pair<T>*>(epi + row * kRow + col * sizeof(T)) = p;
+          }
+      }
+    }
+    __syncthreads();
+    constexpr int kV = 16 / sizeof(T);  // outputs a 16-byte store
+    constexpr int kRowChunks = BN / kV;
+    for (int e = tid; e < kPassRows * kRowChunks; e += kT) {
+      const int row = e / kRowChunks, col = (e % kRowChunks) * kV;
+      const int64_t m = m0 + pass * kPassRows + row;
+      const int n = n0 + col;
+      if (m >= a.M || n >= N) continue;
+      const unsigned char* src = epi + row * kRow + col * sizeof(T);
+      T* dst = out + m * N + n;
+      if (out_vec && n + kV <= N) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int j = 0; j < kV && n + j < N; ++j) dst[j] = reinterpret_cast<const T*>(src)[j];
+      }
     }
   }
 }
@@ -221,7 +566,8 @@ __global__ void __launch_bounds__(kThreads) dwconv_kernel(
                static_cast<int>(w[(r * kw + s) * C + c]);
       }
     }
-    store<T>(out, idx, acc, c, scale, bias);
+    out[idx] = epilogue<T>(acc, std::is_same<T, int>::value ? 0.f : scale[c],
+                           bias != nullptr ? bias[c] : 0.f, bias != nullptr);
   }
 }
 
@@ -230,29 +576,41 @@ unsigned int grid_stride_blocks(int64_t n) {
   return static_cast<unsigned int>(blocks < 132 * 16 ? blocks : 132 * 16);
 }
 
-bool aligned4(const void* p) { return reinterpret_cast<uintptr_t>(p) % 4 == 0; }
+template <typename T, typename ALoader, int BN>
+cudaError_t launch_tile(const ALoader& a, const int8_t* bmat, int N, bool b_async,
+                        const float* scale, const float* bias, void* out, cudaStream_t s) {
+  constexpr int smem = Tile<BN>::template smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(igemm_kernel<T, ALoader, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (a.M + kBM - 1) / kBM * ((N + BN - 1) / BN);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const bool out_vec = N * sizeof(T) % 16 == 0 && aligned(out, 16);
+  igemm_kernel<T, ALoader, BN><<<static_cast<unsigned int>(tiles), Tile<BN>::kThreads, smem, s>>>(
+      a, bmat, N, b_async, scale, bias, static_cast<T*>(out), out_vec);
+  return cudaGetLastError();
+}
 
+template <typename T, typename ALoader>
+cudaError_t launch_igemm_t(const ALoader& a, const int8_t* bmat, int N, bool b_async,
+                           const float* scale, const float* bias, void* out, cudaStream_t s) {
+  return N <= 64 ? launch_tile<T, ALoader, 64>(a, bmat, N, b_async, scale, bias, out, s)
+                 : launch_tile<T, ALoader, 128>(a, bmat, N, b_async, scale, bias, out, s);
+}
+
+// b (N, K) row-major; b_async: its rows take cp.async (K % 16 == 0, b 16-byte aligned)
 template <typename ALoader>
 cudaError_t launch_igemm(const ALoader& a, const void* bmat, const void* scale, const void* bias,
-                         void* out, int N, int out_dtype, bool b_aligned, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned int>((a.M + kBM - 1) / kBM),
-                  static_cast<unsigned int>((N + kBN - 1) / kBN));
+                         void* out, int N, int out_dtype, cudaStream_t s) {
   const auto* b8 = static_cast<const int8_t*>(bmat);
+  const bool b_async = a.K % 16 == 0 && aligned(bmat, 16);
   const auto* sc = static_cast<const float*>(scale);
   const auto* bi = static_cast<const float*>(bias);
-  if (out_dtype == AC_F32) {
-    igemm_kernel<float, ALoader><<<grid, kThreads, 0, s>>>(a, b8, sc, bi,
-                                                          static_cast<float*>(out), N, b_aligned);
-  } else if (out_dtype == AC_BF16) {
-    igemm_kernel<__nv_bfloat16, ALoader><<<grid, kThreads, 0, s>>>(
-        a, b8, sc, bi, static_cast<__nv_bfloat16*>(out), N, b_aligned);
-  } else if (out_dtype == AC_I32) {
-    igemm_kernel<int, ALoader><<<grid, kThreads, 0, s>>>(a, b8, sc, bi, static_cast<int*>(out), N,
-                                                        b_aligned);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (out_dtype == AC_F32) return launch_igemm_t<float>(a, b8, N, b_async, sc, bi, out, s);
+  if (out_dtype == AC_BF16)
+    return launch_igemm_t<__nv_bfloat16>(a, b8, N, b_async, sc, bi, out, s);
+  if (out_dtype == AC_I32) return launch_igemm_t<int>(a, b8, N, b_async, sc, bi, out, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -278,10 +636,9 @@ extern "C" int ac_int8_quantize(const void* x, void* q, int64_t n, float inv, in
 extern "C" int ac_int8_gemm(const void* a, const void* b, const void* scale, const void* bias,
                             void* out, int64_t M, int N, int K, int out_dtype, void* stream) {
   if (M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
-  const bool aligned = K % 4 == 0 && aligned4(a) && aligned4(b);
-  const GemmA loader{static_cast<const int8_t*>(a), M, K, aligned};
-  return static_cast<int>(launch_igemm(loader, b, scale, bias, out, N, out_dtype, aligned,
-                                       static_cast<cudaStream_t>(stream)));
+  const GemmA loader{static_cast<const int8_t*>(a), M, K, K % 16 == 0 && aligned(a, 16)};
+  return static_cast<int>(
+      launch_igemm(loader, b, scale, bias, out, N, out_dtype, static_cast<cudaStream_t>(stream)));
 }
 
 // out (B, Ho, Wo, Cout) = epilogue(conv(x (B, H, W, C), w (Cout, kh, kw, C))),
@@ -292,11 +649,10 @@ extern "C" int ac_int8_conv(const void* x, const void* w, const void* scale, con
                             void* stream) {
   const int64_t M = B * Ho * Wo;
   if (M == 0 || Cout == 0) return static_cast<int>(cudaGetLastError());
-  const int K = kh * kw * C;
-  const ConvA loader{static_cast<const int8_t*>(x), M, H, W, C, Ho, Wo, kw, sh, sw, ph, pw, K,
-                     C % 4 == 0 && aligned4(x)};
+  const int mode = C % 16 == 0 ? kRun16 : (C == 1 && kh == 1) ? kRun1 : kBytes;
+  const ConvA loader{static_cast<const int8_t*>(x), M,  H,  W,  C,  Ho, Wo, kw,
+                     sh, sw, ph, pw, kh * kw * C, mode, mode == kRun16 && aligned(x, 16)};
   return static_cast<int>(launch_igemm(loader, w, scale, bias, out, Cout, out_dtype,
-                                       K % 4 == 0 && aligned4(w),
                                        static_cast<cudaStream_t>(stream)));
 }
 

@@ -17,6 +17,10 @@ back:
   NHWC int8 image with an OIHW int8 weight: groups = 1 launches the
   implicit-GEMM ``ac_int8_conv``, groups = C (depthwise) ``ac_int8_dwconv``.
 
+The GEMM and the implicit-GEMM convolution are one kernel on the int8
+tensor cores (``csrc/int8.cu``'s note says how it tiles and loads); it
+takes any K up to ``MAX_K`` and any alignment of the operands.
+
 ``out_dtype=torch.int32`` returns the int32 accumulators themselves (no
 epilogue): the check of the products alone. The twins compute the
 products in float64, exact for every integer sum below 2^53, and round

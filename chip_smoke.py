@@ -198,6 +198,8 @@ from pathlib import Path
 
 import numpy as np
 
+from applecider_tpu_torch.tools.int8_timing import (INT8_CONV_TIMED, INT8_CONVS, INT8_GEMM_TIMED,
+                                                    INT8_GEMMS, conv_geometry)
 from applecider_tpu_torch.tools.kernel_timing import time_ms
 
 REPO = Path(__file__).resolve().parent
@@ -3245,37 +3247,42 @@ def check_imported_checkpoints(card: str, tmp: Path, raw_dir: Path, dev,
 INT8_KERNELS = ("int8_quantize", "int8_gemm", "int8_conv", "int8_dwconv")
 INT8_SOURCE = "applecider_tpu_torch/csrc/int8.cu"
 SERVE_BATCH = 512
-# (what, M, K, N): the serving path's dense layers at B = 512 alerts of 258
-# tokens (the photometry transformer), and its small towers and heads
-INT8_GEMMS = (("photometry in_proj 7->128", 512 * 258, 7, 128),
-              ("attention in_proj 128->384", 512 * 258, 128, 384),
-              ("FFN linear1 128->512", 512 * 258, 128, 512),
-              ("FFN linear2 512->128", 512 * 258, 512, 128),
-              ("metadata tower 19->128", 512, 19, 128),
-              ("router 128->4", 512, 128, 4))
-INT8_GEMM_TIMED = 1  # the attention in_proj
-# the largest spectra block of a 512-alert serving batch: 192 spectra (the
-# spectra bucket above phase 3b's 123-162 a batch) and the zero row
-SPEC_BLOCK = 193
-# (what, B, H, W, Cin, Cout, kh, kw, stride, pad): ConvNeXt's stem and a
-# downsample on 63x63 images (B = 512), SpectraNet's bank convolutions and
-# its 1x1 downsample (conv1d as a 1 x L image) on that spectra block
-INT8_CONVS = (("ConvNeXt stem 4x4/4 3->96", 512, 63, 63, 3, 96, 4, 4, 4, 0),
-              ("ConvNeXt downsample 2x2/2 96->192", 512, 15, 15, 96, 192, 2, 2, 2, 0),
-              ("SpectraNet stage 0 K=1021 1->64", SPEC_BLOCK, 1, 3481, 1, 64, 1, 1021, 1, 510),
-              ("SpectraNet stage 1 K=31 64->128", SPEC_BLOCK, 1, 870, 64, 128, 1, 31, 1, 15),
-              ("SpectraNet stage 1 K=251 64->128", SPEC_BLOCK, 1, 870, 64, 128, 1, 251, 1, 125),
-              ("SpectraNet downsample 1x1 192->64", SPEC_BLOCK, 1, 3481, 192, 64, 1, 1, 1, 0))
-INT8_CONV_TIMED = 3  # SpectraNet stage 1's K = 31 bank convolution
+# (what, M, K, N, byte offset of a and b): shapes the tiling meets at its
+# edges, held bit for bit and not timed: M not a multiple of the 128-row
+# tile, K not a multiple of 16 or 32, N = 4 and 72, operands 1 byte off
+# 16-byte alignment (a sliced view)
+INT8_GEMM_EDGES = (("M ragged", 1000, 128, 384, 0),
+                   ("K=33", 1000, 33, 128, 0),
+                   ("K=100 N=36", 777, 100, 36, 0),
+                   ("N=72", 1000, 128, 72, 0),
+                   ("N=4, M ragged", 300, 128, 4, 0),
+                   ("a and b 1 byte off", 1000, 128, 384, 1),
+                   ("K=7, a and b 1 byte off", 999, 7, 128, 1))
+# (what, B, H, W, Cin, Cout, kh, kw, stride, pad, byte offset of x and w)
+INT8_CONV_EDGES = (
+    ("Cin=1 K=1021 pad 510 on L=300 (the window past both ends)", 7, 1, 300, 1, 64, 1, 1021, 1,
+     510, 0),
+    ("Cin=1 K=61 pad 30 stride 2, x and w 1 byte off", 5, 1, 333, 1, 40, 1, 61, 2, 30, 1),
+    ("SpectraNet stage 1 K=31 on 9 spectra, x 1 byte off", 9, 1, 870, 64, 128, 1, 31, 1, 15, 1),
+    ("3x3 pad 1 64->72 on 9x9 (M ragged)", 4, 9, 9, 64, 72, 3, 3, 1, 1, 0),
+    ("3x3/2 pad 1 24->40 on 11x11 (C % 16 != 0)", 3, 11, 11, 24, 40, 3, 3, 2, 1, 0),
+    ("Cin=1 3x3 pad 1 on 13x13 (kh > 1)", 2, 13, 13, 1, 8, 3, 3, 1, 1, 0))
 # depthwise 7x7 pad 3 at each ConvNeXt stage on 63x63 images, B = 512
 INT8_DWCONVS = tuple((f"ConvNeXt dwconv 7x7 {h}x{h}x{c}", 512, h, h, c)
                      for h, c in ((15, 96), (7, 192), (3, 384), (1, 768)))
 
 
-def _int8_inputs(rng, shape, dev):
+def _int8_inputs(rng, shape, dev, offset: int = 0):
+    """Random int8 codes of ``shape``; ``offset`` > 0: a contiguous view
+    that starts ``offset`` bytes past a 16-byte boundary."""
     import torch
 
-    return torch.from_numpy(rng.integers(-127, 128, size=shape).astype(np.int8)).to(dev)
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(rng.integers(-127, 128, size=n + offset).astype(np.int8)).to(dev)
+    t = buf[offset:].view(shape)
+    if t.data_ptr() % 16 != offset:
+        raise SystemExit(f"int8 inputs: wanted a view {offset} bytes off alignment")
+    return t
 
 
 def _epilogue_inputs(rng, n, dev):
@@ -3308,6 +3315,31 @@ def _compare_int8(what: str, kernel_fn, twin_fn, scale, bias) -> float:
     return worst
 
 
+# instantiations of igemm_kernel<T, ALoader, BN>: T f32, bf16, int32 x
+# GemmA, ConvA x BN 64, 128
+INT8_IGEMM_INSTANTIATIONS = 12
+
+
+def check_int8_sass() -> None:
+    """The int8 GEMM and convolution multiply on the int8 tensor cores: in
+    the SASS (``cuobjdump -sass``) of the int8 library, every instantiation
+    of ``igemm_kernel`` must hold IMMA instructions, and the quantizer's
+    and the depthwise kernel's none."""
+    imma = {}
+    for name, body in _sass_functions("int8"):
+        short = _short_kernel_name(name)
+        imma[short] = len(re.findall(r"\bIMMA\.", body))
+    igemm = {k: v for k, v in imma.items() if "igemm_kernel" in k}
+    other = {k: v for k, v in imma.items() if "igemm_kernel" not in k}
+    log(f"SASS IMMA instructions per int8 kernel: igemm_kernel {igemm}; others {other} (> 0 in "
+        f"each of {INT8_IGEMM_INSTANTIATIONS} igemm instantiations, 0 elsewhere, required)")
+    if len(igemm) != INT8_IGEMM_INSTANTIATIONS or not all(igemm.values()) or any(other.values()) \
+            or not any("quantize_kernel" in k for k in other) \
+            or not any("dwconv_kernel" in k for k in other):
+        raise SystemExit("an int8 GEMM or convolution left the tensor cores, another int8 kernel "
+                         "moved onto them, or an instantiation is missing")
+
+
 def check_int8_kernels(card: str, dev) -> list[dict]:
     """Phase 11a: each int8 kernel against its twin on the card at the
     serving shapes, int8_gemm also against ``torch._int_mm`` where that
@@ -3317,6 +3349,7 @@ def check_int8_kernels(card: str, dev) -> list[dict]:
 
     from applecider_tpu_torch.ops import int8
 
+    check_int8_sass()
     rng = np.random.default_rng(11)
     records = []
 
@@ -3355,7 +3388,9 @@ def check_int8_kernels(card: str, dev) -> list[dict]:
             if not torch.equal(torch._int_mm(a, b.t()), int8.gemm(a, b, None, None, torch.int32)):
                 raise SystemExit(f"int8_gemm {what} differs from torch._int_mm")
             lib = "; equal to torch._int_mm bit for bit"
-        log(f"int8_gemm {what} M={M} K={K} N={N}: int32 bitwise, epilogue max rel {err:.3g}{lib}")
+        ms = time_ms(lambda: int8.gemm(a, b, scale, bias, torch.bfloat16))
+        log(f"int8_gemm {what} M={M} K={K} N={N}: int32 bitwise, epilogue max rel {err:.3g}{lib}; "
+            f"kernel {ms:.4f} ms, {2.0 * M * N * K / ms / 1e9:.1f} TOPS [{card}]")
         if i == INT8_GEMM_TIMED:
             b_ms, b_by = bound_ms(M * K + N * K + 2 * M * N + 8 * N, 2.0 * M * N * K, "int8")
             rec = dict(name="int8_gemm", route="cuda", source=INT8_SOURCE,
@@ -3374,18 +3409,28 @@ def check_int8_kernels(card: str, dev) -> list[dict]:
                 f"({b_by}) torch._int_mm (int32 out, no epilogue) {rec['library_ms']:.4f} ms "
                 f"[{card}]")
         del a, b
+    for what, M, K, N, off in INT8_GEMM_EDGES:
+        a, b = _int8_inputs(rng, (M, K), dev, off), _int8_inputs(rng, (N, K), dev, off)
+        scale, bias = _epilogue_inputs(rng, N, dev)
+        err = _compare_int8(what, lambda s, bb, dt: int8.gemm(a, b, s, bb, dt),
+                            lambda s, bb, dt: int8.gemm_reference(a, b, s, bb, dt), scale, bias)
+        lib = ""
+        if M > 16 and K % 8 == 0 and N % 8 == 0 and off == 0:
+            if not torch.equal(torch._int_mm(a, b.t()), int8.gemm(a, b, None, None, torch.int32)):
+                raise SystemExit(f"int8_gemm {what} differs from torch._int_mm")
+            lib = "; equal to torch._int_mm bit for bit"
+        log(f"int8_gemm edge {what} M={M} K={K} N={N} (offset {off}): int32 bitwise, epilogue max "
+            f"rel {err:.3g}{lib}")
+        del a, b
 
     # the convolution
     for i, (what, B, H, W, C, Cout, kh, kw, s, p) in enumerate(INT8_CONVS):
-        stride, pad = ((1, s), (0, p)) if H == 1 else ((s, s), (p, p))
+        stride, pad, M, K = conv_geometry(B, H, W, C, Cout, kh, kw, s, p)
         x, w = _int8_inputs(rng, (B, H, W, C), dev), _int8_inputs(rng, (Cout, C, kh, kw), dev)
         scale, bias = _epilogue_inputs(rng, Cout, dev)
         err = _compare_int8(what, lambda sc, bb, dt: int8.conv2d(x, w, sc, bb, dt, stride, pad),
                             lambda sc, bb, dt: int8.conv2d_reference(x, w, sc, bb, dt, stride, pad),
                             scale, bias)
-        Ho = int8.conv_output_size(H, kh, stride[0], pad[0])
-        Wo = int8.conv_output_size(W, kw, stride[1], pad[1])
-        M, K = B * Ho * Wo, C * kh * kw
         ms = time_ms(lambda: int8.conv2d(x, w, scale, bias, torch.bfloat16, stride, pad),
                      iters=3, reps=3)
         log(f"int8_conv {what} (M={M} K={K} N={Cout}): int32 bitwise, epilogue max rel {err:.3g}; "
@@ -3409,6 +3454,17 @@ def check_int8_kernels(card: str, dev) -> list[dict]:
                 f"{rec['device_ms']:.4f}) plain (float64) {rec['plain_ms']:.4f} ms bound "
                 f"{b_ms:.5f} ms ({b_by}) library none (PyTorch has no int8 convolution on CUDA) "
                 f"[{card}]")
+        del x, w
+    for what, B, H, W, C, Cout, kh, kw, s, p, off in INT8_CONV_EDGES:
+        stride, pad, M, K = conv_geometry(B, H, W, C, Cout, kh, kw, s, p)
+        x = _int8_inputs(rng, (B, H, W, C), dev, off)
+        w = _int8_inputs(rng, (Cout, C, kh, kw), dev, off)
+        scale, bias = _epilogue_inputs(rng, Cout, dev)
+        err = _compare_int8(what, lambda sc, bb, dt: int8.conv2d(x, w, sc, bb, dt, stride, pad),
+                            lambda sc, bb, dt: int8.conv2d_reference(x, w, sc, bb, dt, stride, pad),
+                            scale, bias)
+        log(f"int8_conv edge {what} (M={M} K={K} N={Cout}, offset {off}): int32 bitwise, epilogue "
+            f"max rel {err:.3g}")
         del x, w
 
     # the depthwise convolution
@@ -3662,7 +3718,8 @@ def check_int8_serving(card: str, model, model32, raw: dict, tmp: Path,
             log(f"  one {batch_size}-row batch at length bucket {P} ({int(placed['spec_has'].sum())} "
                 f"spectra in a block of {placed['spec_has'].shape[0]}): int8 {i8['ms']:.3f} ms, device "
                 f"busy {i8['device_ms']:.3f} ms; bf16 {b16['ms']:.3f} ms, device busy "
-                f"{b16['device_ms']:.3f} ms [{card}]")
+                f"{b16['device_ms']:.3f} ms; int8 busy / bf16 busy "
+                f"{i8['device_ms'] / b16['device_ms']:.3f} [{card}]")
         want_held = {"quantize": per_forward["int8_quantize"] * len(LENGTH_BUCKETS),
                      "gemm": per_forward["int8_gemm"] * len(LENGTH_BUCKETS),
                      "conv": (per_forward["int8_conv"] + per_forward["int8_dwconv"])

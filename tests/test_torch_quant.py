@@ -5,8 +5,9 @@ wrappers run their plain twins.
 * The twins' int32 accumulators equal JAX's ``lax.dot_general`` /
   ``conv_general_dilated(preferred_element_type=int32)`` on the same int8
   operands exactly, and ``quant_dense``/``quant_conv`` equal JAX's within
-  1e-6 x max|y| (f32): Linear K = 7, 19, 64; conv1d 'same' K = 3, 61;
-  conv2d 4x4/4, 2x2/2 and the depthwise 7x7 pad 3.
+  1e-6 x max|y| (f32): Linear K = 7, 19, 33, 64, M = 131, N = 4; conv1d
+  'same' K = 3, 61 (Cin 3 and 1); conv2d 4x4/4, 2x2/2 and the depthwise 7x7
+  pad 3.
 * The input and weight quantizers equal JAX's bit for bit, exact .5 ties
   (half to even) and values past +-127 included.
 * Calibration gives JAX's key set, each scale within 1e-5 relative (the
@@ -52,6 +53,13 @@ CASES = {
     "conv2d_4x4s4": ("conv2d", (2, 15, 15, 3), (8, 3, 4, 4), 4, 0, 1),
     "conv2d_2x2s2": ("conv2d", (2, 7, 7, 8), (12, 8, 2, 2), 2, 0, 1),
     "dwconv_7x7": ("conv2d", (2, 9, 9, 6), (6, 1, 7, 7), 1, 3, 6),
+    # the tensor-core kernel's tile edges: K not a multiple of 16 or 32,
+    # M not a multiple of the 128-row tile, N = 4, and Cin = 1 (16 taps a
+    # chunk) with the window past both ends of a short row
+    "linear_k33": ("dense", (7, 33), (12, 33), None, None, 1),
+    "linear_m_ragged": ("dense", (131, 64), (8, 64), None, None, 1),
+    "linear_n4": ("dense", (3, 5, 128), (4, 128), None, None, 1),
+    "conv1d_cin1_k61": ("conv1d", (2, 50, 1), (4, 1, 61), 1, 30, 1),
 }
 
 
@@ -139,6 +147,24 @@ def test_accumulator_and_output_equal_jax(name):
             got = m(xt)
     assert got.dtype == torch.float32 and got.shape == jy.shape
     np.testing.assert_allclose(got.numpy(), jy, rtol=0, atol=1e-6 * float(np.abs(jy).max()))
+
+
+def test_int8_timed_shapes_are_spectranets():
+    """The convolutions that chip_smoke.py and tools/int8_timing.py time on
+    the card include every SpectraNet bank convolution and 1x1 downsample
+    at its stage's length and channels, on the serving spectra block."""
+    from applecider_tpu_torch.models.spectranet import DEFAULT_BANKS, SPECTRUM_BINS
+    from applecider_tpu_torch.tools.int8_timing import INT8_CONVS, SPEC_BLOCK
+
+    timed = {row[1:] for row in INT8_CONVS}
+    want, cin, length = set(), 1, SPECTRUM_BINS
+    for stage, (cout, bank) in enumerate(zip((64, 128, 256, 512, 1024), DEFAULT_BANKS)):
+        want |= {(SPEC_BLOCK, 1, length, cin, cout, 1, k, 1, k // 2) for k in bank}
+        if stage < 4:
+            want.add((SPEC_BLOCK, 1, length, cout * len(bank), cout, 1, 1, 1, 0))
+            length //= 4
+        cin = cout
+    assert want <= timed, sorted(want - timed)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
