@@ -29,10 +29,8 @@
 // bank convolutions (K = 3 to 1,021 taps, 1 to 512 channels, ~1.3 int8
 // TOPs a 193-spectra block) are bound by operations; the photometry
 // transformer's GEMMs (M = 512 * 258 rows, K = 128 or 512) by bytes, most
-// of them the bf16 output (101 MB at N = 384: 0.030 ms). The quantizer and
-// the depthwise convolution move bytes: 5 (f32 in, int8 out) or 3 (bf16)
-// bytes an element, and the depthwise 7x7's 49 MACs an output are far
-// below the byte time.
+// of them the bf16 output (101 MB at N = 384: 0.030 ms). The quantizer
+// moves 5 (f32 in, int8 out) or 3 (bf16) bytes an element.
 //
 // Design of the GEMM and the convolution: one kernel, igemm_kernel<T,
 // ALoader, BN>, on the int8 tensor cores (mma.sync m16n8k32, s8 x s8 ->
@@ -68,9 +66,53 @@
 // the first stage; it stages the tile in shared memory of its own, beside
 // the ring (64 or 128 rows at a time), and writes 16 bytes a thread where
 // N * sizeof(T) % 16 == 0, else element by element. Conv1d
-// runs as a 1 x L image. The depthwise kernel is a thread per output: its
-// 49 taps read the channel's pixels, consecutive threads on consecutive
-// channels.
+// runs as a 1 x L image.
+//
+// The depthwise convolution (groups = C = Cout: every ConvNeXt block's 7x7
+// pad 3, at 15x15x96, 7x7x192, 3x3x384 and 1x1x768 on 63x63 stamps; 18
+// launches a forward) reads each input byte and writes each output once:
+// 1 byte in and 2 out (bf16) an output, 33.2 MB at stage 0 (B = 512), 0.0099
+// ms at 3.35 TB/s; 14.5, 5.3 and 1.2 MB at stages 1-3. Its 49 MACs an output
+// (38.4, 27.9, 9 and 1 of them inside the image) are no tensor-core work:
+// each output channel has its own 49 weights. So after the bytes, what
+// bounds it is the rate of its integer instructions (128 a clock an SM),
+// and the design cuts those: dwconv_tile_kernel<T, R>.
+//  * A block stages a tile in shared memory: NI whole images (one where the
+//    image is large, up to 32 where it is small: stages 1-3) by a slice of
+//    CS <= 128 channels, H rows of TW columns, the padding columns written
+//    as zeros; rows wholly in the padding are not stored but skipped. Each
+//    input byte is read from device memory once: by cp.async.cg 16 bytes
+//    where C % 16 == 0 and x is 16-byte aligned (every ConvNeXt stage),
+//    else byte by byte (C % 16 != 0, or a view off alignment: checked, not
+//    assumed). Beside it, the slice's weights as words of 4 taps of one
+//    channel (kw <= 8: two words a row, taps past kw zero). NI and CS are
+//    chosen on the host so that the items of a block fill its 256 threads
+//    (stage 2: 5 images, stage 3: 8) and at least two blocks an SM are in
+//    flight.
+//  * A thread owns a word of 4 channels and a run of R (8, 4 or 1, from Wo)
+//    outputs along a row. For each row of the window inside the image it
+//    reads the row's R + 7 positions once (4-byte words of its 4 channels,
+//    the lanes of a warp on consecutive words), transposes them in
+//    registers, 4 x 4 bytes by 8 __byte_perm, into channel-planar words (4
+//    positions of one channel), and applies the row's taps to every output
+//    of its run: __dp4a over 4 taps of one channel, the window's offset by
+//    one funnel shift. That design was taken over int32 multiply-adds on
+//    unpacked bytes (49 IMAD an output-channel and the unpacking): with
+//    R = 8 a row costs 16 + 2 loads, 32 + 48 byte moves and 64 IDP4A for 32
+//    output-channels, ~5 instructions an output-channel a row against ~9.
+//    Stage 0 runs ~370 M of them, ~0.013 ms at 128 a clock an SM, beside
+//    its 0.0099 ms of bytes. The sums are exact int32 in any order, so the
+//    kernel stays bit for bit with its twin.
+//  * Coordinates come from the block index (images, slice) and a 32-bit
+//    item index a thread (no 64-bit division); the 1-D grid is sized to the
+//    work. A warp stores consecutive channel words of one output pixel: 4
+//    outputs a thread, 8 bytes in bf16, 16 in f32 and int32.
+// Any other geometry (a stride other than 1, C % 4 != 0, kw > 8, an output
+// not aligned to 4 outputs, one image's tile of the narrowest slice, 16
+// channels or 4 where C % 16 != 0, past 96 KB) runs the general path,
+// dwconv_general_kernel<T>: a thread an output, consecutive threads on
+// consecutive channels, its taps read from device memory.
+// ac_int8_dwconv_plan reports which path and launch a shape takes.
 #include <type_traits>
 
 #include "common.cuh"
@@ -539,10 +581,15 @@ __global__ void __launch_bounds__(kThreads) quantize_kernel(const T* __restrict_
   }
 }
 
-// Depthwise convolution (groups = C): a thread per output (b, ho, wo, c);
-// w is (kh, kw, C).
+unsigned int grid_stride_blocks(int64_t n) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  return static_cast<unsigned int>(blocks < 132 * 16 ? blocks : 132 * 16);
+}
+
+// Depthwise convolution (groups = C), the general path: a thread per output
+// (b, ho, wo, c), any geometry; w is (kh, kw, C).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) dwconv_kernel(
+__global__ void __launch_bounds__(kThreads) dwconv_general_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
     const float* __restrict__ bias, T* __restrict__ out, int64_t total, int H, int W, int C,
     int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw) {
@@ -571,9 +618,254 @@ __global__ void __launch_bounds__(kThreads) dwconv_kernel(
   }
 }
 
-unsigned int grid_stride_blocks(int64_t n) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned int>(blocks < 132 * 16 ? blocks : 132 * 16);
+// The depthwise tile kernel (see the note above), stride 1.
+constexpr int kDwQuads = 2;                 // words of 4 taps a kernel row: kw <= 8
+constexpr int kDwMaxCS = 128;               // channels of a slice
+constexpr int kDwMaxImages = 32;            // images a block
+constexpr int kDwTileBudget = 96 * 1024;    // bytes of image tile a block: two blocks an SM
+constexpr int kDwMaxSmem = 227 * 1024;      // an H100 block's shared memory
+constexpr int kSMs = 132;                   // an H100's SMs
+enum DwLoad : int { kDwAsync16 = 0, kDwBytes = 1 };
+
+struct DwTile {
+  const int8_t* x;  // (B, H, W, C)
+  const int8_t* w;  // (kh, kw, C)
+  int64_t B;
+  int H, W, C, Ho, Wo, kh, kw, ph, pw;
+  int NI;      // images a block
+  int CS, PS;  // channels of a slice; bytes of a tile pixel (CS rounded up to 16)
+  int slices;  // slices of C
+  int TW;      // tile columns: column p holds w = p - pw, zero outside the image
+  int runs;    // runs of R outputs along a row
+  int load;    // DwLoad
+};
+
+// 4 outputs of one pixel, stored at once
+template <typename T>
+struct alignas(4 * sizeof(T)) Quad {
+  T v[4];
+};
+
+// Block blockIdx.x: channel slice blockIdx.x % slices of images NI *
+// (blockIdx.x / slices) onward. A thread's items, 256 apart: channel word
+// (fastest), run, output row, image.
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads, 2) dwconv_tile_kernel(
+    const DwTile a, const float* __restrict__ scale, const float* __restrict__ bias,
+    T* __restrict__ out) {
+  constexpr int G = (R + 4 * kDwQuads + 2) / 4;  // words of 4 positions a run reads a row
+  extern __shared__ __align__(128) unsigned char smem[];  // as igemm_kernel declares it
+  const int tid = threadIdx.x;
+  const int slice = blockIdx.x % a.slices;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x / a.slices) * a.NI;
+  const int ni = a.B - b0 < a.NI ? static_cast<int>(a.B - b0) : a.NI;  // the last block: fewer
+  const int c0 = slice * a.CS, cs = min(a.CS, a.C - c0), n_cw = cs / 4;
+  const int row_bytes = a.TW * a.PS;  // a row of the tile
+  unsigned char* const tile = smem;  // (NI * H, TW, PS)
+  // then the weights, (kh, quads, CS) words
+  uint32_t* const wsm = reinterpret_cast<uint32_t*>(smem + a.NI * a.H * row_bytes);
+
+  // the images' pixels into columns pw..pw+W-1; px = (image * H + h) * W + w
+  const int8_t* const xb = a.x + b0 * a.H * a.W * a.C + c0;
+  const int n_px = ni * a.H * a.W;
+  if (a.load == kDwAsync16) {
+    const int per_px = cs / 16;
+    for (int e = tid; e < n_px * per_px; e += kThreads) {
+      const int k = e % per_px, px = e / per_px;
+      const int col = a.pw + px % a.W, row = px / a.W;
+      cp_async16(smem_u32(tile + row * row_bytes + col * a.PS + 16 * k),
+                 xb + static_cast<int64_t>(px) * a.C + 16 * k, true);
+    }
+  } else {
+    for (int e = tid; e < n_px * cs; e += kThreads) {
+      const int k = e % cs, px = e / cs;
+      const int col = a.pw + px % a.W, row = px / a.W;
+      tile[row * row_bytes + col * a.PS + k] =
+          static_cast<unsigned char>(xb[static_cast<int64_t>(px) * a.C + k]);
+    }
+  }
+  cp_async_commit();
+  // the padding columns 0..pw-1 and pw+W..TW-1, zero
+  const int pad_cols = a.TW - a.W, chunks = a.PS / 16;
+  for (int e = tid; e < ni * a.H * pad_cols * chunks; e += kThreads) {
+    const int k = e % chunks, t = e / chunks;
+    const int col = t % pad_cols, row = t / pad_cols;
+    *reinterpret_cast<uint4*>(tile + row * row_bytes + (col < a.pw ? col : col + a.W) * a.PS +
+                              16 * k) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // the weights: word (r, q, c) holds taps 4q..4q+3 of row r of channel c0 + c
+  for (int e = tid; e < a.kh * kDwQuads * cs; e += kThreads) {
+    const int c = e % cs, rq = e / cs;
+    const int q = rq % kDwQuads, r = rq / kDwQuads;
+    uint32_t v = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = 4 * q + i;
+      if (s < a.kw)
+        v |= static_cast<uint32_t>(static_cast<uint8_t>(a.w[(r * a.kw + s) * a.C + c0 + c]))
+             << (8 * i);
+    }
+    wsm[rq * a.CS + c] = v;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const bool has_bias = bias != nullptr;
+  const int per_image = n_cw * a.Ho * a.runs;
+  for (int it = tid; it < ni * per_image; it += kThreads) {
+    const int cw = it % n_cw;
+    int t = it / n_cw;
+    const int run = t % a.runs;
+    t /= a.runs;
+    const int ho = t % a.Ho, img = t / a.Ho;
+    int acc[R][4];
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][c] = 0;
+    // the run's first column of the image's row 0, this thread's channel word
+    const unsigned char* const run0 = tile + img * a.H * row_bytes + run * R * a.PS + 4 * cw;
+    const int r0 = max(0, a.ph - ho), r1 = min(a.kh, a.H + a.ph - ho);  // rows inside the image
+    for (int r = r0; r < r1; ++r) {
+      const unsigned char* const src = run0 + (ho - a.ph + r) * row_bytes;
+      uint32_t xw[4 * G];  // position i of the run: channels 0..3
+#pragma unroll
+      for (int i = 0; i < 4 * G; ++i) xw[i] = *reinterpret_cast<const uint32_t*>(src + i * a.PS);
+      uint32_t pl[4][G];  // pl[c][g]: positions 4g..4g+3 of channel c
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const uint32_t t0 = __byte_perm(xw[4 * g], xw[4 * g + 1], 0x5140);
+        const uint32_t t1 = __byte_perm(xw[4 * g], xw[4 * g + 1], 0x7362);
+        const uint32_t t2 = __byte_perm(xw[4 * g + 2], xw[4 * g + 3], 0x5140);
+        const uint32_t t3 = __byte_perm(xw[4 * g + 2], xw[4 * g + 3], 0x7362);
+        pl[0][g] = __byte_perm(t0, t2, 0x5410);
+        pl[1][g] = __byte_perm(t0, t2, 0x7632);
+        pl[2][g] = __byte_perm(t1, t3, 0x5410);
+        pl[3][g] = __byte_perm(t1, t3, 0x7632);
+      }
+#pragma unroll
+      for (int q = 0; q < kDwQuads; ++q) {
+        const uint4 wq = *reinterpret_cast<const uint4*>(wsm + (r * kDwQuads + q) * a.CS + 4 * cw);
+        const int wv[4] = {static_cast<int>(wq.x), static_cast<int>(wq.y), static_cast<int>(wq.z),
+                           static_cast<int>(wq.w)};
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          // output j's taps 4q..4q+3 are positions o..o+3: words g and (sh > 0) g + 1
+          const int o = j + 4 * q, g = o / 4, sh = o % 4, g1 = g + 1 < G ? g + 1 : g;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const uint32_t win = sh ? __funnelshift_r(pl[c][g], pl[c][g1], 8 * sh) : pl[c][g];
+            acc[j][c] = __dp4a(static_cast<int>(win), wv[c], acc[j][c]);
+          }
+        }
+      }
+    }
+    const int c = c0 + 4 * cw;
+    float sc[4], bi[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      sc[k] = std::is_same<T, int>::value ? 0.f : scale[c + k];
+      bi[k] = has_bias ? bias[c + k] : 0.f;
+    }
+    T* const orow = out + ((b0 + img) * a.Ho + ho) * static_cast<int64_t>(a.Wo) * a.C + c;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int wo = run * R + j;
+      if (wo >= a.Wo) break;
+      Quad<T> v;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v.v[k] = epilogue<T>(acc[j][k], sc[k], bi[k], has_bias);
+      *reinterpret_cast<Quad<T>*>(orow + static_cast<int64_t>(wo) * a.C) = v;
+    }
+  }
+}
+
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+int64_t round_up(int64_t a, int64_t b) { return ceil_div(a, b) * b; }
+
+// The tile kernel's launch for a depthwise convolution, or false where the
+// general kernel runs it (see the note above). out_size: bytes of an output.
+struct DwPlan {
+  DwTile a;
+  int R;
+  int64_t blocks;
+  int smem;
+};
+
+bool plan_dwconv(DwTile a, int sh, int sw, const void* out, int out_size, DwPlan& p) {
+  if (sh != 1 || sw != 1 || a.C % 4 != 0 || a.kw > 4 * kDwQuads || !aligned(out, 4 * out_size))
+    return false;
+  const int R = a.Wo >= 5 ? 8 : a.Wo >= 2 ? 4 : 1;
+  const int G = (R + 4 * kDwQuads + 2) / 4;
+  a.runs = static_cast<int>(ceil_div(a.Wo, R));
+  a.TW = (a.runs - 1) * R + 4 * G;
+  // slices of at most 128 channels, as even as the load's unit allows;
+  // narrower where one image's tile would pass the budget
+  const int unit = a.C % 16 == 0 ? 16 : 4;
+  int64_t CS = round_up(ceil_div(a.C, ceil_div(a.C, kDwMaxCS)), unit);
+  while (CS > unit && static_cast<int64_t>(a.H) * a.TW * round_up(CS, 16) > kDwTileBudget)
+    CS = round_up(CS / 2, unit);
+  const int64_t image_bytes = static_cast<int64_t>(a.H) * a.TW * round_up(CS, 16);
+  const int64_t weight_bytes = static_cast<int64_t>(a.kh) * kDwQuads * CS * 4;
+  if (image_bytes > kDwTileBudget || image_bytes + weight_bytes > kDwMaxSmem) return false;
+  a.CS = static_cast<int>(CS);
+  a.PS = static_cast<int>(round_up(CS, 16));
+  a.slices = static_cast<int>(ceil_div(a.C, CS));
+  // images a block: the most even fill of the block's 256 threads by items
+  // (and of B by blocks), keeping two blocks an SM in flight
+  const int64_t per_image = CS / 4 * a.Ho * a.runs;
+  int NI = 1;
+  double best = -1.0;
+  for (int ni = 1; ni <= kDwMaxImages && ni <= a.B; ++ni) {
+    const int64_t groups = ceil_div(a.B, ni);
+    if (ni > 1 && (ni * image_bytes > kDwTileBudget ||
+                   groups * a.slices < 2 * kSMs || ni * per_image > 0x7fffffff))
+      break;
+    const int64_t items = ni * per_image;
+    const double fill = static_cast<double>(items) / round_up(items, kThreads) *
+                        static_cast<double>(a.B) / static_cast<double>(groups * ni);
+    if (fill > best + 1e-9) {
+      best = fill;
+      NI = ni;
+    }
+  }
+  a.NI = NI;
+  p.blocks = ceil_div(a.B, NI) * a.slices;
+  if (p.blocks > 0x7fffffff || NI * per_image > 0x7fffffff) return false;
+  a.load = a.C % 16 == 0 && aligned(a.x, 16) ? kDwAsync16 : kDwBytes;
+  p.a = a;
+  p.R = R;
+  p.smem = static_cast<int>(NI * image_bytes + weight_bytes);
+  return true;
+}
+
+template <typename T, int R>
+cudaError_t launch_dw_tile(const DwPlan& p, const float* scale, const float* bias, void* out,
+                           cudaStream_t s) {
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dwconv_tile_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+  }
+  dwconv_tile_kernel<T, R><<<static_cast<unsigned int>(p.blocks), kThreads, p.smem, s>>>(
+      p.a, scale, bias, static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dwconv(const DwTile& a, int sh, int sw, const float* scale, const float* bias,
+                          void* out, cudaStream_t s) {
+  DwPlan p;
+  if (plan_dwconv(a, sh, sw, out, sizeof(T), p)) {
+    if (p.R == 8) return launch_dw_tile<T, 8>(p, scale, bias, out, s);
+    if (p.R == 4) return launch_dw_tile<T, 4>(p, scale, bias, out, s);
+    return launch_dw_tile<T, 1>(p, scale, bias, out, s);
+  }
+  const int64_t total = a.B * a.Ho * a.Wo * a.C;
+  dwconv_general_kernel<T><<<grid_stride_blocks(total), kThreads, 0, s>>>(
+      a.x, a.w, scale, bias, static_cast<T*>(out), total, a.H, a.W, a.C, a.Ho, a.Wo, a.kh, a.kw,
+      sh, sw, a.ph, a.pw);
+  return cudaGetLastError();
 }
 
 template <typename T, typename ALoader, int BN>
@@ -661,27 +953,34 @@ extern "C" int ac_int8_dwconv(const void* x, const void* w, const void* scale, c
                               void* out, int64_t B, int H, int W, int C, int Ho, int Wo, int kh,
                               int kw, int sh, int sw, int ph, int pw, int out_dtype,
                               void* stream) {
-  const int64_t total = B * Ho * Wo * C;
-  if (total == 0) return static_cast<int>(cudaGetLastError());
+  if (B * Ho * Wo * C == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = grid_stride_blocks(total);
-  const auto* x8 = static_cast<const int8_t*>(x);
-  const auto* w8 = static_cast<const int8_t*>(w);
+  DwTile a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), B, H, W, C, Ho, Wo, kh,
+           kw, ph, pw};
   const auto* sc = static_cast<const float*>(scale);
   const auto* bi = static_cast<const float*>(bias);
-  if (out_dtype == AC_F32) {
-    dwconv_kernel<float><<<blocks, kThreads, 0, s>>>(x8, w8, sc, bi, static_cast<float*>(out),
-                                                     total, H, W, C, Ho, Wo, kh, kw, sh, sw, ph,
-                                                     pw);
-  } else if (out_dtype == AC_BF16) {
-    dwconv_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        x8, w8, sc, bi, static_cast<__nv_bfloat16*>(out), total, H, W, C, Ho, Wo, kh, kw, sh, sw,
-        ph, pw);
-  } else if (out_dtype == AC_I32) {
-    dwconv_kernel<int><<<blocks, kThreads, 0, s>>>(x8, w8, sc, bi, static_cast<int*>(out), total,
-                                                   H, W, C, Ho, Wo, kh, kw, sh, sw, ph, pw);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (out_dtype == AC_F32) return static_cast<int>(launch_dwconv<float>(a, sh, sw, sc, bi, out, s));
+  if (out_dtype == AC_BF16)
+    return static_cast<int>(launch_dwconv<__nv_bfloat16>(a, sh, sw, sc, bi, out, s));
+  if (out_dtype == AC_I32) return static_cast<int>(launch_dwconv<int>(a, sh, sw, sc, bi, out, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch ac_int8_dwconv makes for these arguments, into plan[0..7]: 1
+// for the tile kernel (then R, images a block, channels a slice, slices,
+// blocks, dynamic shared bytes, DwLoad), 0 for the general kernel. Returns
+// cudaErrorInvalidValue for an unknown out dtype.
+extern "C" int ac_int8_dwconv_plan(const void* x, const void* out, int64_t B, int H, int W, int C,
+                                   int Ho, int Wo, int kh, int kw, int sh, int sw, int ph, int pw,
+                                   int out_dtype, int64_t* plan) {
+  const int size = out_dtype == AC_BF16 ? 2 : out_dtype == AC_F32 || out_dtype == AC_I32 ? 4 : 0;
+  if (size == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const DwTile a{static_cast<const int8_t*>(x), nullptr, B, H, W, C, Ho, Wo, kh, kw, ph, pw};
+  DwPlan p;
+  const bool tile = B * Ho * Wo * C > 0 && plan_dwconv(a, sh, sw, out, size, p);
+  const int64_t v[8] = {tile, tile ? p.R : 0, tile ? p.a.NI : 0, tile ? p.a.CS : 0,
+                        tile ? p.a.slices : 0, tile ? p.blocks : 0, tile ? p.smem : 0,
+                        tile ? p.a.load : 0};
+  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  return 0;
 }

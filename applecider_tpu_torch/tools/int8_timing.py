@@ -1,20 +1,23 @@
-"""The int8 GEMM and convolution kernels (``csrc/int8.cu``) at the serving
-shapes of ``chip_smoke.py`` phase 11a, this checkout's beside another
-checkout's, in one process.
+"""The int8 GEMM, convolution and depthwise convolution kernels
+(``csrc/int8.cu``) at the serving shapes of ``chip_smoke.py`` phase 11a,
+this checkout's beside another checkout's, in one process.
 
     python3 -m applecider_tpu_torch.tools.int8_timing [--earlier DIR]
 
 Builds this checkout's ``int8`` library (``ops.kernel.build``) and, with
 ``--earlier``, ``DIR/applecider_tpu_torch/csrc/int8.cu`` with the same nvcc
 flags into ``build/kernels/earlier/``: both export the same C entry points,
-called here as ``ops.int8``'s wrappers call them (the convolution's weight
-permuted once, outside the timing). At each shape the two libraries' int32
-accumulators must be equal; then each is timed in turns (earlier, this,
-this, earlier) on the same inputs, bf16 out with a bias, with
-``kernel_timing.time_ms`` as every kernel is timed (``ms``) and, for the
-GEMMs, queued behind a sleep (``device_ms``), beside ``torch._int_mm``
-where that call takes the shape. Needs a GPU; prints the card's name and
-power limit first and one JSON line last.
+called here as ``ops.int8``'s wrappers call them (the convolutions'
+weights permuted once, outside the timing). At each shape the two
+libraries' int32 accumulators must be equal; then each is timed in turns
+(earlier, this, this, earlier) on the same inputs, bf16 out with a bias,
+with ``kernel_timing.time_ms`` as every kernel is timed (``ms``) and, for
+the GEMMs and the depthwise convolutions, queued behind a sleep
+(``device_ms``), beside ``torch._int_mm`` where that call takes the shape.
+The depthwise rows also give the launch this checkout's library makes
+(``ac_int8_dwconv_plan``) and their sum over a forward, each weighted by
+its launches. Needs a GPU; prints the card's name and power limit first
+and one JSON line last.
 """
 
 from __future__ import annotations
@@ -70,6 +73,14 @@ INT8_CONVS = (("ConvNeXt stem 4x4/4 3->96", 512, 63, 63, 3, 96, 4, 4, 4, 0),
               ("SpectraNet stage 4 K=7 512->1024", SPEC_BLOCK, 1, 13, 512, 1024, 1, 7, 1, 3),
               ("SpectraNet stage 4 K=13 512->1024", SPEC_BLOCK, 1, 13, 512, 1024, 1, 13, 1, 6))
 INT8_CONV_TIMED = 3  # SpectraNet stage 1's K = 31 bank convolution
+# (what, B, H, W, C, launches a forward): the 7x7 pad 3 depthwise convolution
+# of every ConvNeXt block (default depths 3, 3, 9, 3) on 63x63 stamps, B = 512
+INT8_DWCONVS = tuple((f"ConvNeXt dwconv 7x7 {h}x{h}x{c}", 512, h, h, c, n)
+                     for h, c, n in ((15, 96, 3), (7, 192, 3), (3, 384, 9), (1, 768, 3)))
+DWCONV_KERNEL, DWCONV_PAD = 7, 3
+# ac_int8_dwconv_plan's fields, and its DwLoad names
+DWCONV_PLAN = ("tile", "R", "images", "channels", "slices", "blocks", "smem", "load")
+DWCONV_LOADS = ("cp.async 16", "bytes")
 
 
 def conv_geometry(B, H, W, C, Cout, kh, kw, s, p) -> tuple:
@@ -82,12 +93,13 @@ def conv_geometry(B, H, W, C, Cout, kh, kw, s, p) -> tuple:
 
 
 class Int8Library:
-    """``ac_int8_gemm`` and ``ac_int8_conv`` of one built int8 library,
-    called with the arguments ``ops.int8.gemm`` and ``conv2d`` pass."""
+    """``ac_int8_gemm``, ``ac_int8_conv`` and ``ac_int8_dwconv`` of one built
+    int8 library, called with the arguments ``ops.int8.gemm`` and ``conv2d``
+    pass."""
 
     def __init__(self, lib: ctypes.CDLL):
         self._lib = lib
-        for k in (int8.KERNEL_GEMM, int8.KERNEL_CONV):
+        for k in (int8.KERNEL_GEMM, int8.KERNEL_CONV, int8.KERNEL_DWCONV):
             fn = getattr(lib, k.symbol)
             fn.argtypes = [*k.argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -115,6 +127,40 @@ class Int8Library:
         self._call("ac_int8_conv", x, wk, scale, bias, out, B, H, W, C, Ho, Wo, Cout, kh, kw,
                    *stride, *pad, int8._out_code(out_dtype))
         return out
+
+    @staticmethod
+    def _dw_args(x, kh, kw, out_dtype, stride, pad) -> tuple:
+        """The depthwise output of ``x`` and the geometry ``ac_int8_dwconv``
+        takes after the pointers, up to the out dtype."""
+        B, H, W, C = x.shape
+        Ho = int8.conv_output_size(H, kh, stride[0], pad[0])
+        Wo = int8.conv_output_size(W, kw, stride[1], pad[1])
+        out = torch.empty((B, Ho, Wo, C), dtype=out_dtype, device=x.device)
+        return out, (B, H, W, C, Ho, Wo, kh, kw, *stride, *pad, int8._out_code(out_dtype))
+
+    def dwconv(self, x, wk, scale, bias, out_dtype, stride, pad) -> torch.Tensor:
+        """``wk`` is the (kh, kw, C) weight the wrapper passes."""
+        out, geometry = self._dw_args(x, *wk.shape[:2], out_dtype, stride, pad)
+        self._call("ac_int8_dwconv", x, wk, scale, bias, out, *geometry)
+        return out
+
+    def dwconv_plan(self, x, kh, kw, out_dtype, stride, pad) -> dict:
+        """The launch ``dwconv`` makes on ``x`` (``ac_int8_dwconv_plan``):
+        {"path": "tile" or "general", and for the tile kernel its R, images
+        a block, channels a slice, slices, blocks, shared bytes, load}."""
+        out, geometry = self._dw_args(x, kh, kw, out_dtype, stride, pad)
+        fn = self._lib.ac_int8_dwconv_plan
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 12 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        plan = (ctypes.c_int64 * len(DWCONV_PLAN))()
+        err = fn(x.data_ptr(), out.data_ptr(), *geometry, plan)
+        if err != 0:
+            raise RuntimeError(f"ac_int8_dwconv_plan failed (cudaError {err})")
+        fields = dict(zip(DWCONV_PLAN, plan))
+        if not fields.pop("tile"):
+            return {"path": "general"}
+        return {"path": "tile", **fields, "load": DWCONV_LOADS[fields["load"]]}
 
 
 def build_earlier(root: Path) -> ctypes.CDLL:
@@ -187,12 +233,34 @@ def time_int8(libs: dict, device, seed: int = 11) -> list[dict]:
         rows.append(row)
         _log(row)
         del x, w, wk
+    k, p = DWCONV_KERNEL, DWCONV_PAD
+    for what, B, H, W, C, n in INT8_DWCONVS:
+        x, wk = ints((B, H, W, C)), ints((k, k, C))
+        scale = torch.from_numpy(rng.uniform(1e-5, 1e-3, C).astype(np.float32)).to(device)
+        bias = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(device)
+        agree({name: lib.dwconv(x, wk, None, None, torch.int32, (1, 1), (p, p))
+               for name, lib in libs.items()}, what)
+        fns = {name: (lambda lib=lib: lib.dwconv(x, wk, scale, bias, torch.bfloat16, (1, 1),
+                                                 (p, p)))
+               for name, lib in libs.items()}
+        row = {"kind": "int8_dwconv", "what": what, "M": B * H * W, "K": k * k, "N": C,
+               "launches_a_forward": n, "ms": _in_turns(fns),
+               "device_ms": _in_turns(fns, queued=True),
+               "plan": libs["this"].dwconv_plan(x, k, k, torch.bfloat16, (1, 1), (p, p))}
+        rows.append(row)
+        _log(row)
+        del x, wk
+    for name in libs:
+        ms, dev = (sum(min(r[key][name]) * r["launches_a_forward"]
+                       for r in rows if r["kind"] == "int8_dwconv") for key in ("ms", "device_ms"))
+        print(f"int8_dwconv {name}: a forward's {sum(n for *_, n in INT8_DWCONVS)} depthwise "
+              f"launches, weighted by launches: {ms:.4f} ms (device {dev:.4f})", flush=True)
     torch.cuda.empty_cache()
     return rows
 
 
 def _log(row: dict) -> None:
-    ops = 2.0 * row["M"] * row["N"] * row["K"]
+    ops = 2.0 * row["M"] * row["N"] * row["K"]  # depthwise: M pixels x N channels x K taps
     parts = []
     for k in ("this", "earlier"):
         if k in row["ms"]:
@@ -200,6 +268,7 @@ def _log(row: dict) -> None:
             dev = f", device {row['device_ms'][k]}" if "device_ms" in row else ""
             parts.append(f"{k} {ms}{dev} ms ({ops / min(ms) / 1e9:.1f} TOPS)")
     lib = f"; torch._int_mm {row['int_mm_ms']:.4f} ms" if row.get("int_mm_ms") else ""
+    lib += f"; {row['plan']}" if "plan" in row else ""
     print(f"{row['kind']} {row['what']} M={row['M']} K={row['K']} N={row['N']}: "
           f"{'; '.join(parts)}{lib}", flush=True)
 

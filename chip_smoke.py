@@ -166,18 +166,21 @@ Phases, in order; any failure exits non-zero before the result line:
    and the f32 and bf16 epilogues bit for bit, the GEMM also against
    ``torch._int_mm`` where that call takes the shape, then timed (ms,
    device ms with the calls queued, the twin, the bound at 3.35 TB/s or
-   1,979 int8 TOPS, ``torch._int_mm``); (b) phase 3b's corpus served with
-   ``int8=True`` through ``serve_alert_stream`` (bf16 weights, calibrated
-   on the first 64 alerts; alerts/s beside phase 3b's; every int8 kernel
-   launched exactly once a quantized layer a batch) and through
-   ``AppleCiderRuntime.serve`` with ``[serve].int8 = true`` (within 1e-3
-   of it): rows finite and summing to 1, ``quant_error_report`` against
+   1,979 int8 TOPS, ``torch._int_mm``); the depthwise convolution at each
+   ConvNeXt shape on the tile path (logged with its launch; a forward's
+   sum weighted by launches) and at its edges (``INT8_DWCONV_EDGES``), no
+   depthwise instantiation spilling registers in phase 1; (b) phase 3b's
+   corpus served with ``int8=True`` through ``serve_alert_stream`` (bf16
+   weights, calibrated on the first 64 alerts; alerts/s beside phase 3b's;
+   every int8 kernel launched exactly once a quantized layer a batch) and
+   through ``AppleCiderRuntime.serve`` with ``[serve].int8 = true`` (within
+   1e-3 of it): rows finite and summing to 1, ``quant_error_report`` against
    the f32 serve, in f32 on 256 alerts the int8 kernel path against its
    plain twins (<= 1e-2), and one 512-row batch a length bucket, with
    every int8 kernel call held against its twin on the same inputs (int8
    codes and int32 accumulators bit for bit) and timed, int8 beside bf16
    (ms between CUDA events, and the card's busy ms from
-   ``torch.profiler``);
+   ``torch.profiler``, int8's split by kernel);
 12. one JSON line describing each kernel, then the result line.
 
 It imports nothing of JAX.
@@ -198,8 +201,9 @@ from pathlib import Path
 
 import numpy as np
 
-from applecider_tpu_torch.tools.int8_timing import (INT8_CONV_TIMED, INT8_CONVS, INT8_GEMM_TIMED,
-                                                    INT8_GEMMS, conv_geometry)
+from applecider_tpu_torch.tools.int8_timing import (DWCONV_KERNEL, DWCONV_PAD, INT8_CONV_TIMED,
+                                                    INT8_CONVS, INT8_DWCONVS, INT8_GEMM_TIMED,
+                                                    INT8_GEMMS, Int8Library, conv_geometry)
 from applecider_tpu_torch.tools.kernel_timing import time_ms
 
 REPO = Path(__file__).resolve().parent
@@ -258,12 +262,15 @@ def device_and_build() -> str:
                 spill = line.strip()
             elif "registers" in line:
                 log(f"  nvcc[{name}] {fn}: {line.strip().removeprefix('ptxas info    : ')}; {spill}")
-                if fn.startswith("ln_gelu_bwd") and "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                if fn.startswith(("ln_gelu_bwd", "dwconv")) and \
+                        "0 bytes spill stores, 0 bytes spill loads" not in spill:
                     spilled.append(fn)
             elif "error" in line.lower():
                 log(f"  nvcc[{name}] {line.strip()}")
-    if spilled:  # K3b holds a row in registers: a spill would send it back to memory
-        raise SystemExit(f"ptxas spilled registers in K3b: {spilled}")
+    # K3b holds a row in registers, the depthwise kernels a window and their
+    # sums: a spill would send them back to memory
+    if spilled:
+        raise SystemExit(f"ptxas spilled registers in K3b or a depthwise kernel: {spilled}")
     build_native_decoder()
     return card
 
@@ -3267,9 +3274,19 @@ INT8_CONV_EDGES = (
     ("3x3 pad 1 64->72 on 9x9 (M ragged)", 4, 9, 9, 64, 72, 3, 3, 1, 1, 0),
     ("3x3/2 pad 1 24->40 on 11x11 (C % 16 != 0)", 3, 11, 11, 24, 40, 3, 3, 2, 1, 0),
     ("Cin=1 3x3 pad 1 on 13x13 (kh > 1)", 2, 13, 13, 1, 8, 3, 3, 1, 1, 0))
-# depthwise 7x7 pad 3 at each ConvNeXt stage on 63x63 images, B = 512
-INT8_DWCONVS = tuple((f"ConvNeXt dwconv 7x7 {h}x{h}x{c}", 512, h, h, c)
-                     for h, c in ((15, 96), (7, 192), (3, 384), (1, 768)))
+# (what, B, H, W, C, k, stride, pad, byte offset of x): depthwise shapes
+# held bit for bit and not timed: C % 4 != 0 and stride 2 (the general
+# path); C % 16 != 0 and x off 16-byte alignment (byte loads); B = 1; a
+# 9x9 and a 2x2 image; a 3x3 kernel
+INT8_DWCONV_EDGES = (("C=6 (the general path)", 2, 9, 9, 6, 7, 1, 3, 0),
+                     ("C=40 on 9x9", 3, 9, 9, 40, 7, 1, 3, 0),
+                     ("B=1 15x15x96", 1, 15, 15, 96, 7, 1, 3, 0),
+                     ("9x9x64", 4, 9, 9, 64, 7, 1, 3, 0),
+                     ("2x2x192", 5, 2, 2, 192, 7, 1, 3, 0),
+                     ("15x15x96, x 1 byte off", 7, 15, 15, 96, 7, 1, 3, 1),
+                     ("7x7x192, x 4 bytes off", 3, 7, 7, 192, 7, 1, 3, 4),
+                     ("stride 2 pad 3 (the general path)", 3, 15, 15, 96, 7, 2, 3, 0),
+                     ("3x3 pad 1", 4, 15, 15, 96, 3, 1, 1, 0))
 
 
 def _int8_inputs(rng, shape, dev, offset: int = 0):
@@ -3324,7 +3341,7 @@ def check_int8_sass() -> None:
     """The int8 GEMM and convolution multiply on the int8 tensor cores: in
     the SASS (``cuobjdump -sass``) of the int8 library, every instantiation
     of ``igemm_kernel`` must hold IMMA instructions, and the quantizer's
-    and the depthwise kernel's none."""
+    and the depthwise kernels' (tile and general) none."""
     imma = {}
     for name, body in _sass_functions("int8"):
         short = _short_kernel_name(name)
@@ -3335,7 +3352,8 @@ def check_int8_sass() -> None:
         f"each of {INT8_IGEMM_INSTANTIATIONS} igemm instantiations, 0 elsewhere, required)")
     if len(igemm) != INT8_IGEMM_INSTANTIATIONS or not all(igemm.values()) or any(other.values()) \
             or not any("quantize_kernel" in k for k in other) \
-            or not any("dwconv_kernel" in k for k in other):
+            or not any("dwconv_tile_kernel" in k for k in other) \
+            or not any("dwconv_general_kernel" in k for k in other):
         raise SystemExit("an int8 GEMM or convolution left the tensor cores, another int8 kernel "
                          "moved onto them, or an instantiation is missing")
 
@@ -3467,45 +3485,82 @@ def check_int8_kernels(card: str, dev) -> list[dict]:
             f"max rel {err:.3g}")
         del x, w
 
-    # the depthwise convolution
-    for i, (what, B, H, W, C) in enumerate(INT8_DWCONVS):
-        x, w = _int8_inputs(rng, (B, H, W, C), dev), _int8_inputs(rng, (C, 1, 7, 7), dev)
+    # the depthwise convolution: each ConvNeXt shape on the tile path, bit for
+    # bit, timed; then the edges, bit for bit
+    from applecider_tpu_torch.ops import kernel
+
+    lib = Int8Library(kernel._libs["int8"])
+    k, p = DWCONV_KERNEL, DWCONV_PAD
+    weighted = {"ms": 0.0, "device_ms": 0.0}
+    for i, (what, B, H, W, C, n) in enumerate(INT8_DWCONVS):
+        x, w = _int8_inputs(rng, (B, H, W, C), dev), _int8_inputs(rng, (C, 1, k, k), dev)
         scale, bias = _epilogue_inputs(rng, C, dev)
         err = _compare_int8(
-            what, lambda sc, bb, dt: int8.conv2d(x, w, sc, bb, dt, (1, 1), (3, 3), C),
-            lambda sc, bb, dt: int8.conv2d_reference(x, w, sc, bb, dt, (1, 1), (3, 3), C),
+            what, lambda sc, bb, dt: int8.conv2d(x, w, sc, bb, dt, (1, 1), (p, p), C),
+            lambda sc, bb, dt: int8.conv2d_reference(x, w, sc, bb, dt, (1, 1), (p, p), C),
             scale, bias)
-        log(f"int8_dwconv {what} B={B}: int32 bitwise, epilogue max rel {err:.3g}")
+        plan = lib.dwconv_plan(x, k, k, torch.bfloat16, (1, 1), (p, p))
+        if plan["path"] != "tile":
+            raise SystemExit(f"int8_dwconv {what} took the general path: {plan}")
+
+        def call():
+            return int8.conv2d(x, w, scale, bias, torch.bfloat16, (1, 1), (p, p), C)
+
+        n_out = B * H * W * C
+        b_ms, b_by = bound_ms(x.numel() + w.numel() + 2 * n_out + 8 * C, 2.0 * n_out * k * k,
+                              "int8")
+        ms, dev_ms = time_ms(call), time_ms(call, queued=True)
+        weighted["ms"] += n * ms
+        weighted["device_ms"] += n * dev_ms
+        log(f"int8_dwconv {what} B={B}: int32 bitwise, epilogue max rel {err:.3g}; {plan}; "
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f}) bound {b_ms:.5f} ms ({b_by}), {n} launches "
+            f"a forward [{card}]")
         if i == 0:
-            n_out = B * H * W * C
-            b_ms, b_by = bound_ms(x.numel() + w.numel() + 2 * n_out + 8 * C,
-                                  2.0 * n_out * 49, "int8")
             rec = dict(name="int8_dwconv", route="cuda", source=INT8_SOURCE,
                        replaces="applecider_tpu/ops/quant.py:165 quant_conv, feature_group_count "
                                 "(XLA; no Pallas kernel)",
                        shape=f"B={B} {H}x{W}x{C} 7x7 pad 3 -> bf16", dtype="int8",
-                       max_abs_err=err,
-                       ms=time_ms(lambda: int8.conv2d(x, w, scale, bias, torch.bfloat16, (1, 1),
-                                                      (3, 3), C)),
-                       device_ms=time_ms(lambda: int8.conv2d(x, w, scale, bias, torch.bfloat16,
-                                                             (1, 1), (3, 3), C), queued=True),
+                       max_abs_err=err, ms=ms, device_ms=dev_ms,
                        plain_ms=time_ms(lambda: int8.conv2d_reference(
-                           x, w, scale, bias, torch.bfloat16, (1, 1), (3, 3), C)),
+                           x, w, scale, bias, torch.bfloat16, (1, 1), (p, p), C)),
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
             records.append(rec)
             log(f"int8_dwconv timed at {rec['shape']}: kernel {rec['ms']:.4f} ms (device "
                 f"{rec['device_ms']:.4f}) plain (float64) {rec['plain_ms']:.4f} ms bound "
                 f"{b_ms:.5f} ms ({b_by}) library none [{card}]")
         del x, w
+    log(f"int8_dwconv a forward ({sum(r[-1] for r in INT8_DWCONVS)} launches over the four "
+        f"shapes, each weighted by its launches): {weighted['ms']:.4f} ms (device "
+        f"{weighted['device_ms']:.4f}) [{card}]")
+    for what, B, H, W, C, kk, s, pp, off in INT8_DWCONV_EDGES:
+        x, w = _int8_inputs(rng, (B, H, W, C), dev, off), _int8_inputs(rng, (C, 1, kk, kk), dev)
+        scale, bias = _epilogue_inputs(rng, C, dev)
+        stride, pad = (s, s), (pp, pp)
+        err = _compare_int8(
+            what, lambda sc, bb, dt: int8.conv2d(x, w, sc, bb, dt, stride, pad, C),
+            lambda sc, bb, dt: int8.conv2d_reference(x, w, sc, bb, dt, stride, pad, C),
+            scale, bias)
+        plan = lib.dwconv_plan(x, kk, kk, torch.bfloat16, stride, pad)
+        log(f"int8_dwconv edge {what} (B={B} {H}x{W}x{C} {kk}x{kk}/{s} pad {pp}, offset {off}): "
+            f"int32 bitwise, epilogue max rel {err:.3g}; {plan}")
+        if plan["path"] != ("general" if C % 4 or s != 1 else "tile"):
+            raise SystemExit(f"int8_dwconv edge {what} took the wrong path: {plan}")
+        del x, w
     torch.cuda.empty_cache()
     return records
+
+
+# the int8 kernels by their names in a profile: (part, substrings one of which it holds)
+INT8_PARTS = (("quantize", ("quantize_kernel",)), ("gemm", ("GemmA",)), ("conv", ("ConvA",)),
+              ("depthwise", ("dwconv_tile_kernel", "dwconv_general_kernel")))
 
 
 def _forward_ms(fn) -> dict:
     """One call of ``fn`` (a whole forward) on the card: ``ms`` between CUDA
     events around it (the host's launches included where they are
-    slower than the card), and ``device_ms``, the card's busy time in it:
-    its kernels' and copies' device time from ``torch.profiler``. (A
+    slower than the card), ``device_ms``, the card's busy time in it: its
+    kernels' and copies' device time from ``torch.profiler``, and
+    ``int8_ms``, the part of it in each int8 kernel (``INT8_PARTS``). (A
     forward's ~1,000 launches overflow the launch queue, so they cannot be
     queued behind a sleep of the card.)"""
     import torch
@@ -3522,11 +3577,18 @@ def _forward_ms(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     busy_us = 0.0
+    int8_us = dict.fromkeys((part for part, _ in INT8_PARTS), 0.0)
     for ev in prof.key_averages():
         if str(ev.device_type).endswith("CUDA"):
-            busy_us += getattr(ev, "self_device_time_total", None) or \
+            us = getattr(ev, "self_device_time_total", None) or \
                 getattr(ev, "self_cuda_time_total", 0.0)
-    return {"ms": start.elapsed_time(end), "device_ms": busy_us / 1e3}
+            busy_us += us
+            for part, names in INT8_PARTS:
+                if any(n in ev.key for n in names):
+                    int8_us[part] += us
+                    break
+    return {"ms": start.elapsed_time(end), "device_ms": busy_us / 1e3,
+            "int8_ms": {part: us / 1e3 for part, us in int8_us.items()}}
 
 
 def int8_launches_a_forward(model, scales: dict) -> dict:
@@ -3719,7 +3781,8 @@ def check_int8_serving(card: str, model, model32, raw: dict, tmp: Path,
                 f"spectra in a block of {placed['spec_has'].shape[0]}): int8 {i8['ms']:.3f} ms, device "
                 f"busy {i8['device_ms']:.3f} ms; bf16 {b16['ms']:.3f} ms, device busy "
                 f"{b16['device_ms']:.3f} ms; int8 busy / bf16 busy "
-                f"{i8['device_ms'] / b16['device_ms']:.3f} [{card}]")
+                f"{i8['device_ms'] / b16['device_ms']:.3f}; int8 busy ms by kernel "
+                f"{ {k: round(v, 4) for k, v in i8['int8_ms'].items()} } [{card}]")
         want_held = {"quantize": per_forward["int8_quantize"] * len(LENGTH_BUCKETS),
                      "gemm": per_forward["int8_gemm"] * len(LENGTH_BUCKETS),
                      "conv": (per_forward["int8_conv"] + per_forward["int8_dwconv"])

@@ -7,7 +7,8 @@ wrappers run their plain twins.
   operands exactly, and ``quant_dense``/``quant_conv`` equal JAX's within
   1e-6 x max|y| (f32): Linear K = 7, 19, 33, 64, M = 131, N = 4; conv1d
   'same' K = 3, 61 (Cin 3 and 1); conv2d 4x4/4, 2x2/2 and the depthwise 7x7
-  pad 3.
+  pad 3 (C = 6, 16, 32, 48; images 9x9, 15x15, 3x3 and 1x1, the window
+  wider than the image).
 * The input and weight quantizers equal JAX's bit for bit, exact .5 ties
   (half to even) and values past +-127 included.
 * Calibration gives JAX's key set, each scale within 1e-5 relative (the
@@ -60,6 +61,12 @@ CASES = {
     "linear_m_ragged": ("dense", (131, 64), (8, 64), None, None, 1),
     "linear_n4": ("dense", (3, 5, 128), (4, 128), None, None, 1),
     "conv1d_cin1_k61": ("conv1d", (2, 50, 1), (4, 1, 61), 1, 30, 1),
+    # the depthwise tile kernel's paths: a window wider than the image (rows
+    # wholly in the padding skipped), the centre tap alone, C = 16 (16-byte
+    # loads) on ConvNeXt stage 0's image
+    "dwconv_7x7_h3": ("conv2d", (2, 3, 3, 32), (32, 1, 7, 7), 1, 3, 32),
+    "dwconv_7x7_h1": ("conv2d", (3, 1, 1, 48), (48, 1, 7, 7), 1, 3, 48),
+    "dwconv_7x7_c16": ("conv2d", (2, 15, 15, 16), (16, 1, 7, 7), 1, 3, 16),
 }
 
 
@@ -165,6 +172,34 @@ def test_int8_timed_shapes_are_spectranets():
             length //= 4
         cin = cout
     assert want <= timed, sorted(want - timed)
+
+
+def test_int8_timed_depthwise_shapes_are_convnexts():
+    """The depthwise convolutions that chip_smoke.py and
+    tools/int8_timing.py time on the card are exactly the depthwise layers
+    of the port's default ConvNeXt on a 63x63 stamp: each image and C with
+    its launches a forward, 7x7 pad 3 stride 1, at the serving batch."""
+    from collections import Counter
+
+    from applecider_tpu_torch.models.convnext import ConvNeXt
+    from applecider_tpu_torch.tools.int8_timing import DWCONV_KERNEL, DWCONV_PAD, INT8_DWCONVS
+
+    model = ConvNeXt()
+    seen = Counter()
+
+    def hook(m, args):
+        _, H, W, C = args[0].shape
+        seen[(H, W, C, m.weight.shape[-1], m.padding, m.stride)] += 1
+
+    for m in model.modules():
+        if isinstance(m, Conv2dTorch) and m.groups > 1:
+            m.register_forward_pre_hook(hook)
+    with torch.no_grad():
+        model(torch.zeros(1, 63, 63, 3))
+    timed = Counter({(H, W, C, DWCONV_KERNEL, DWCONV_PAD, 1): n
+                     for _, _, H, W, C, n in INT8_DWCONVS})
+    assert seen == timed
+    assert {row[1] for row in INT8_DWCONVS} == {512}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
