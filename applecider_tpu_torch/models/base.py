@@ -12,7 +12,12 @@ dropout sites at the run's generators and calls:
 * ``predict(batch, kernels)``: the module in eval mode;
 * ``make_optimizer(params)``: a ``torch.optim`` optimizer over the trainable
   parameters, ``grad_clip`` the global-norm clip in front of it (None: off);
-* ``to_tensor(host_batch)``: a collated batch as NumPy arrays, labels last.
+* ``to_tensor(host_batch)``: a collated batch as NumPy arrays, labels last;
+* ``init(batch)``: the JAX task's ``init(rng, batch)``, called on the first
+  ``to_tensor`` batch before a ``Trainer`` takes the task. A task whose
+  model is sized by its inputs (the zoo's, ``models/zoo.py``) builds it
+  there; every other task builds its model in its constructor and does
+  nothing.
 
 ``kernels=False`` selects the plain PyTorch versions of the kernels on the
 card (the yardstick), as the models' ``forward`` does.
@@ -34,6 +39,9 @@ class Task:
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
+
+    def init(self, batch: tuple[np.ndarray, ...]) -> None:
+        """Size the model from a host batch; a no-op for a task built whole."""
 
     def loss(self, batch: tuple[torch.Tensor, ...], train: bool = True, kernels: bool = True
              ) -> tuple[torch.Tensor, dict]:

@@ -9,19 +9,23 @@ so run configs select them either way. The port registers what it has:
 * tasks, built the same way: ``"BaselineCLS"`` and ``"HyraxBaselineCLS"``
   (``models.baseline_cls.BaselineCLSTask``), ``"MPT"`` and ``"MPTModel"``
   (``models.mpt.MPTTask``), ``"SpectraNet"`` and ``"SpectraNetTriPool"``
-  (``models.spectranet``), ``"AstroMiNN"`` (``models.astrominn``);
+  (``models.spectranet``), ``"AstroMiNN"`` (``models.astrominn``), and the
+  model zoo's seven baselines (``models.zoo``: ``"BTSModel"``,
+  ``"GalSpecNet"``, ``"MetaModel"``, ``"Informer"``, ``"SpectraViT"``,
+  ``"SpectraEfficientNetV2"``, ``"SpectraConvNeXt"``);
 * datasets: ``"FusionDataset"`` and ``"CiDErDataset"``,
   ``"PhotoEventsDataset"``, ``"SpectraDataset"`` and ``"SpectraData"``,
   ``"ImageAndMetadataDataset"``, ``"LogitSequenceDataset"``.
 
 The JAX package's dotted names of these (``applecider_tpu.models.fusion.
 AppleCiderTask``, ``applecider_tpu.models.spectranet.SpectraNetTask``,
+``applecider_tpu.models.zoo.InformerTask``,
 ``applecider_tpu.datasets.spectra_dataset.SpectraDataset``, ...) map to
 them, so the same run TOML drives both packages. Any other dotted name
 under ``applecider_tpu.`` raises ``KeyError``: the port never imports the
 JAX package. A short name the JAX package registers but the port has not
-ported yet (the model zoo's) raises ``NotImplementedError`` naming its
-ROADMAP item.
+ported yet raises ``NotImplementedError`` naming its ROADMAP item; every
+model name is ported now.
 """
 
 from __future__ import annotations
@@ -35,18 +39,14 @@ _DATASET_REGISTRY: dict[str, Any] = {}
 # the port's modules that register entries, imported on a registry miss
 _MODEL_MODULES = ["applecider_tpu_torch.models.fusion", "applecider_tpu_torch.models.baseline_cls",
                   "applecider_tpu_torch.models.mpt", "applecider_tpu_torch.models.spectranet",
-                  "applecider_tpu_torch.models.astrominn"]
+                  "applecider_tpu_torch.models.astrominn", "applecider_tpu_torch.models.zoo"]
 _DATASET_MODULES = ["applecider_tpu_torch.datasets.fusion_dataset",
                     "applecider_tpu_torch.datasets.photo_dataset",
                     "applecider_tpu_torch.datasets.spectra_dataset",
                     "applecider_tpu_torch.datasets.image_metadata_dataset",
                     "applecider_tpu_torch.datasets.logit_sequence_dataset"]
 
-_UNPORTED_MODELS = {
-    name: "ROADMAP.md Queue A item 7 (models/zoo.py)" for name in (
-        "BTSModel", "GalSpecNet", "MetaModel", "Informer", "SpectraViT",
-        "SpectraEfficientNetV2", "SpectraConvNeXt")
-}
+_UNPORTED_MODELS: dict[str, str] = {}
 _UNPORTED_DATASETS: dict[str, str] = {}
 
 

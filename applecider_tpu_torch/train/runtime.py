@@ -12,7 +12,10 @@
   ``model.SpectraNet.redshift`` the redshift regressor; ``model.name =
   "SpectraNetTriPool"`` the TriPool classifier on the same data) and
   ``AstroMiNN`` (``astrominn.toml``, on the samples that
-  ``preprocessing.alert_samples.build_alert_samples`` writes). ``serve``
+  ``preprocessing.alert_samples.build_alert_samples`` writes), and the
+  model zoo's seven baselines (``models/zoo.py``) on any data set whose
+  batch carries the model's input key; a zoo model is sized by the first
+  batch (``Task.init``), as the JAX runtime inits its task. ``serve``
   and ``warmup`` run the fusion model and refuse another.
 * Each verb writes into a timestamped run directory under ``workdir``;
   ``infer`` and ``serve`` load the weights of the most recent trained run
@@ -78,14 +81,21 @@ class AppleCiderRuntime:
         self.config.set(path, value)
 
     # ----------------------------------------------------------- components
-    def _task(self) -> Task:
+    def _task(self, dataset=None) -> Task:
         """The configured task, its weights drawn from ``train.seed``; the
-        fusion model's factory is wrapped in ``AppleCiderTask``."""
+        fusion model's factory is wrapped in ``AppleCiderTask``. With a
+        ``dataset``, ``task.init`` on its first batch, where the JAX runtime
+        inits its task on the first batch of the loader it runs (a zoo
+        model is sized by it)."""
         name = self.config.get_path("model.name", default="BaselineCLS")
         seed = int(self.config.get_path("train.seed", 42))
         built = get_model(name)(self.config, device=self.device,
                                 generator=torch.Generator().manual_seed(seed))
-        return built if isinstance(built, Task) else AppleCiderTask(self.config, built)
+        task = built if isinstance(built, Task) else AppleCiderTask(self.config, built)
+        if dataset is not None:
+            n = min(len(dataset), int(self.config.section("data_loader").get("batch_size", 32)))
+            task.init(task.to_tensor(dataset.collate([dataset.sample(i) for i in range(n)])))
+        return task
 
     def _fusion_task(self) -> AppleCiderTask:
         """``_task()``, which must be the fusion model: serving runs it alone."""
@@ -144,7 +154,7 @@ class AppleCiderRuntime:
         weights in place of the drawn ones."""
         if "train" not in self.datasets:
             self.prepare()
-        task = self._task()
+        task = self._task(self.datasets["train"])
         self._run_dir = self._new_run_dir("train")
         trainer = Trainer(task, self.config, self._run_dir, device=self.device)
         train_loader = self._loader(self.datasets["train"], shuffle=True)
@@ -168,8 +178,8 @@ class AppleCiderRuntime:
         order; also written to ``predictions.npy``."""
         if not self.datasets:
             self.prepare()
-        trainer = self._restore_latest()
         ds = self.datasets.get("infer") or self.datasets.get("train")
+        trainer = self._restore_latest(self._task(ds))
         loader = self._loader(ds, shuffle=False)
         out_dir = self._new_run_dir("infer")
         preds = trainer.predict(loader, kernels=kernels)
@@ -258,10 +268,10 @@ class AppleCiderRuntime:
         ``symbolic_batch``, ``symbolic_error`` after a fallback)."""
         if not self.datasets:
             self.prepare()
-        trainer = self._restore_latest()
+        ds = self.datasets.get("infer") or self.datasets.get("train")
+        trainer = self._restore_latest(self._task(ds))
         task = trainer.task
-        loader = self._loader(self.datasets.get("infer") or self.datasets.get("train"),
-                              shuffle=False)
+        loader = self._loader(ds, shuffle=False)
         out_path = Path(out_path) if out_path else self._new_run_dir("export")
         out_path.mkdir(parents=True, exist_ok=True)
         task.module.eval().requires_grad_(False)

@@ -7,16 +7,20 @@ and each leaf changes layout by its kind:
 * Linear ``kernel`` (in, out) -> ``weight`` (out, in);
 * conv1d ``kernel`` (K, Cin, Cout) -> ``weight`` (Cout, Cin, K);
 * conv2d ``kernel`` HWIO -> ``weight`` OIHW;
-* LayerNorm ``scale`` -> ``weight``;
+* LayerNorm and BatchNorm ``scale`` -> ``weight``;
 * everything else (``bias``, ``cls_tok``, ``gamma``, Time2Vec's ``w0``,
-  ``b0``, ``w``, ``b``) as it is.
+  ``b0``, ``w``, ``b``; the zoo's ``cls``, ``pos``, and its raw conv1d
+  leaves ``token_kernel`` and ``conv{i}_kernel``, which the port keeps in
+  the flax layout (K, Cin, Cout); ``experimental``'s ``pe`` and ``b``) as
+  it is.
 
 TriPool's ``head_fc1`` kernel (C * L, 2048) is laid out channel-major,
 because both packages flatten the last stage's (B, L, C) activations as
-(B, C, L); it transposes like any Linear. Its frozen BatchNorm keeps
-``scale`` and ``bias`` in flax ``params`` (mapped as above) and its running
-statistics in the ``batch_stats`` collection: ``mean`` becomes the
-buffer ``running_mean`` and ``var`` ``running_var``.
+(B, C, L); it transposes like any Linear. Its frozen BatchNorm, and
+SpectraEfficientNetV2's, keep ``scale`` and ``bias`` in flax ``params``
+(mapped as above) and the running statistics in the ``batch_stats``
+collection: ``mean`` becomes the buffer ``running_mean`` and ``var``
+``running_var``.
 """
 
 from __future__ import annotations

@@ -181,7 +181,27 @@ Phases, in order; any failure exits non-zero before the result line:
    codes and int32 accumulators bit for bit) and timed, int8 beside bf16
    (ms between CUDA events, and the card's busy ms from
    ``torch.profiler``, int8's split by kernel);
-12. one JSON line describing each kernel, then the result line.
+12. the model zoo (``models/zoo.py``) at the published widths in bf16:
+   (a) each of the seven baselines built through ``registry.get_model``,
+   sized by its first batch (``task.init``): three warm-up and ten staged
+   training steps timed with CUDA events (ms, samples/s, peak GiB), the
+   loss finite, then one predict with finite rows; BTSModel B = 256 of 63
+   x 63 x 3, MetaModel B = 256 of 24, GalSpecNet B = 64 of 3,481 bins,
+   Informer B = 64 of 257 x 7 (mean head), SpectraViT B = 64 of 224 x 224
+   x 3 (197 tokens, 8 heads of 32), SpectraEfficientNetV2 (arch m, head
+   1,280) and SpectraConvNeXt (ConvNeXt-base) B = 32 of 224 x 224 x 3;
+   SpectraViT launching exactly K4 forward and backward 4 each a step and
+   K2 4 a predict, every other model no hand-written kernel; (b)
+   SpectraViT's loss, logits and gradients with ``kernels=True`` against
+   ``kernels=False`` on the same weights and dropout draws, f32 (TF32
+   off) within 1e-4 * max(1, |plain|) and bf16 within 2e-2 * max(1,
+   |plain|), and its eval logits (K2) within the same; (c) K2 and K4a's
+   forward and backward at SpectraViT's shape (B = 64, H = 8, L = 197, hd
+   = 32, bf16, rate 0, no mask) against their twins, timed beside them,
+   SDPA and the bound;
+13. one JSON line describing each kernel (the zoo's three rows with
+   ``counter`` naming the launch counter of the kernel they time), then
+   the result line.
 
 It imports nothing of JAX.
 """
@@ -205,6 +225,7 @@ from applecider_tpu_torch.tools.int8_timing import (DWCONV_KERNEL, DWCONV_PAD, I
                                                     INT8_CONVS, INT8_DWCONVS, INT8_GEMM_TIMED,
                                                     INT8_GEMMS, Int8Library, conv_geometry)
 from applecider_tpu_torch.tools.kernel_timing import time_ms
+from applecider_tpu_torch.tools.profile_tasks import ZOO_BATCHES, zoo_host_batches
 
 REPO = Path(__file__).resolve().parent
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): bytes/s and ops/s
@@ -2047,14 +2068,15 @@ def _photometry_batches(n_batches: int, batch_size: int, seed: int) -> list:
             for s in range(0, n_batches * batch_size, batch_size)]
 
 
-def _staged_steps(trainer, batches: list, steps: int, on_card: bool) -> dict:
+def _staged_steps(trainer, batches: list, steps: int, on_card: bool, warmup: int = 1) -> dict:
     """``steps`` train steps over ``batches`` (already on the device), in
-    turn, after one step of first launches: each timed with CUDA events
-    (the host clock on the CPU); the launches of the timed steps alone;
-    the peak device memory over them."""
+    turn, after ``warmup`` steps of first launches: each timed with CUDA
+    events (the host clock on the CPU); the launches of the timed steps
+    alone; the peak device memory over them."""
     import torch
 
-    trainer.train_step(batches[0])
+    for _ in range(warmup):
+        trainer.train_step(batches[0])
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3798,6 +3820,204 @@ def check_int8_serving(card: str, model, model32, raw: dict, tmp: Path,
             "device_ms_by_bucket": per_bucket, "layers": len(scales), "held": held}
 
 
+# ------------------------------------------------------------- phase 12
+# SpectraViT's launches: K4 forward and backward in each of its 4 encoder
+# layers a step (dropout 0: rate 0), K2 in each a predict; no other zoo
+# model launches a hand-written kernel
+ZOO_STEP_KERNELS = {"SpectraViT": {"flash_attention_fwd": 4, "flash_attention_bwd": 4}}
+ZOO_PREDICT_KERNELS = {"SpectraViT": {"masked_attention": 4}}
+# SpectraViT's attention at the published widths: B = 64, dim 256 in 8
+# heads of 32, (224 / 16)^2 patches + CLS
+ZOO_ATTN = (64, 8, 197, 32)
+
+
+def zoo_staged_steps(card: str, workdir: Path, cfg, dev, shapes: dict, steps: int = 10,
+                     warmup: int = 3) -> dict:
+    """Phase 12a: each zoo model built through the registry at ``cfg``'s
+    widths on the card, sized by its first batch (``task.init``), then
+    ``warmup`` and ``steps`` timed staged training steps and one predict
+    (``_staged_steps``), with exact launches."""
+    import torch
+
+    from applecider_tpu_torch.registry import get_model
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    on_card = dev.type == "cuda"
+    out, launches = {}, {}
+    for i, (name, (shape, batch)) in enumerate(shapes.items()):
+        task = get_model(name)(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        hosts = zoo_host_batches(type(task), shape, batch, 2, seed=31 + i)
+        task.init(hosts[0])
+        trainer = Trainer(task, cfg, workdir / name, device=dev)
+        batches = [trainer.to_device(h) for h in hosts]
+        r = _staged_steps(trainer, batches, steps, on_card, warmup=warmup)
+        n_params = sum(p.numel() for p in task.module.parameters())
+        _log_staged(f"zoo {name} steps, {cfg.get_path('train.compute_dtype')}, "
+                    f"{n_params:,} parameters, input {shape}", r, card)
+        _require_launches(r["launches"], {n: k * steps for n, k in
+                                          ZOO_STEP_KERNELS.get(name, {}).items()},
+                          f"the zoo {name} steps ({steps})", on_card)
+        counters = zero_counters()
+        with torch.no_grad():
+            preds = task.predict(batches[0])
+        predicted = _kernel_launches(counters)
+        _require_launches(predicted, ZOO_PREDICT_KERNELS.get(name, {}),
+                          f"the zoo {name} predict", on_card)
+        if preds.shape[0] != batch or not bool(torch.isfinite(preds).all()):
+            raise SystemExit(f"zoo {name}: predict did not return finite ({batch}, classes) rows")
+        for k in set(r["launches"]) | set(predicted):
+            launches[k] = launches.get(k, 0) + r["launches"].get(k, 0) + predicted.get(k, 0)
+        out[name] = r
+        del trainer, task, batches
+        if on_card:
+            torch.cuda.empty_cache()
+    return {"staged": out, "launches": launches}
+
+
+def zoo_vit_parity(cfg, dev, shape: tuple, batch: int) -> dict:
+    """Phase 12b: SpectraViT's train-mode loss, logits and gradients with
+    ``kernels=True`` (K4 forward and backward) against ``kernels=False``
+    (their plain twins), the same weights and dropout draws: f32 with TF32
+    off within 1e-4 * max(1, |plain|), bf16 within 2e-2 * max(1, |plain|);
+    then its eval logits, K2 against its twin, within the same limits."""
+    import torch
+
+    from applecider_tpu_torch.ops.dropout import DropoutRNG, attach_dropout_rng
+    from applecider_tpu_torch.registry import get_model
+
+    out = {}
+    for dname, rel in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        c = cfg.merged_with({"train": {"compute_dtype": dname}})
+        task = get_model("SpectraViT")(c, device=dev, generator=torch.Generator().manual_seed(0))
+        host = zoo_host_batches(type(task), shape, batch, 1, seed=41)[0]
+        task.init(host)
+        xb = tuple(torch.from_numpy(a).to(dev) for a in host)
+        runs = []
+        with no_tf32() if dname == "float32" else contextlib.nullcontext():
+            for kernels in (True, False):
+                attach_dropout_rng(task.module, DropoutRNG(11, dev))
+                task.module.zero_grad(set_to_none=True)
+                loss, aux = task.loss(xb, train=True, kernels=kernels)
+                loss.backward()
+                grads = {n: p.grad.detach().clone() for n, p in task.module.named_parameters()}
+                with torch.no_grad():
+                    logits = task.predict(xb, kernels=kernels)
+                runs.append((loss.detach(), aux["logits"].detach(), grads, logits))
+        (l1, z1, g1, e1), (l0, z0, g0, e0) = runs
+        errs, ok = {}, True
+        for what, got, want in (("loss", l1, l0), ("train logits", z1, z0),
+                                ("eval logits", e1, e0)):
+            errs[what], good = _rel_ok(got, want, rel)
+            ok = ok and good
+        gerr = 0.0
+        for n in g0:
+            e, good = _rel_ok(g1[n], g0[n], rel)
+            gerr, ok = max(gerr, e), ok and good
+        errs["gradients"] = gerr
+        log(f"zoo SpectraViT {dname} B={batch} {shape}, kernels vs plain (<= {rel:g}*max(1,|plain|)"
+            f"{', TF32 off' if dname == 'float32' else ''}): "
+            + ", ".join(f"{k} max|d|={v:.3g}" for k, v in errs.items()) + (" OK" if ok else " FAIL"))
+        if not ok:
+            raise SystemExit(f"zoo SpectraViT {dname}: the kernel path disagrees with the plain one")
+        out[dname] = errs
+        del task, runs
+    return out
+
+
+def time_zoo_attention(rng, dev) -> list[dict]:
+    """Phase 12c: K2 and K4 (forward and backward at rate 0, as SpectraViT
+    runs them) at ``ZOO_ATTN`` in bf16, no mask: each held against its
+    plain twin (<= 2e-2 * max(1, |plain|)), then timed beside it, SDPA (its
+    backward through autograd) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from applecider_tpu_torch.ops import attention as at
+    from applecider_tpu_torch.ops import flash_attention as fa
+
+    B, H, L, hd = ZOO_ATTN
+    q, k, v, do, _ = _attn_inputs(rng, B, L, torch.bfloat16, dev, H=H, hd=hd)
+    shape = f"B={B} H={H} L={L} hd={hd}"
+    e2, ok2 = _rel_ok(at.masked_attention(q, k, v, None),
+                      at.masked_attention_reference(q, k, v, None), 2e-2)
+    ef, okf = _rel_ok(fa.flash_forward(q, k, v, None, 0.0),
+                      fa.flash_attention_reference(q, k, v, None, None, 0.0), 2e-2)
+    eb, okb = 0.0, True
+    for g, w in zip(fa.flash_backward(q, k, v, None, 0.0, do),
+                    fa.flash_attention_backward_reference(q, k, v, None, None, 0.0, do)):
+        e, good = _rel_ok(g, w, 2e-2)
+        eb, okb = max(eb, e), okb and good
+    log(f"zoo attention {shape} bf16 vs plain (<= 2e-2*max(1,|plain|)): K2 max|d|={e2:.3g}, "
+        f"K4a fwd max|d|={ef:.3g}, bwd max|d|={eb:.3g} {'OK' if ok2 and okf and okb else 'FAIL'}")
+    if not (ok2 and okf and okb):
+        raise SystemExit(f"K2 or K4a disagrees with its plain twin at SpectraViT's {shape}")
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs)
+    times = {
+        "k2": time_ms(lambda: at.masked_attention(q, k, v, None)),
+        "k2_plain": time_ms(lambda: at.masked_attention_reference(q, k, v, None)),
+        "sdpa": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        "fwd": time_ms(lambda: fa.flash_forward(q, k, v, None, 0.0)),
+        "fwd_plain": time_ms(lambda: fa.flash_attention_reference(q, k, v, None, None, 0.0)),
+        "bwd": time_ms(lambda: fa.flash_backward(q, k, v, None, 0.0, do)),
+        "bwd_plain": time_ms(lambda: fa.flash_attention_backward_reference(
+            q, k, v, None, None, 0.0, do)),
+        "sdpa_bwd": time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                                        retain_graph=True)),
+    }
+    io = B * H * L * hd * 2
+    fb, fby = bound_ms(4 * io, 4.0 * B * H * L * L * hd, "bfloat16")
+    bb, bby = bound_ms(7 * io, 10.0 * B * H * L * L * hd, "bfloat16")
+    rows = (("masked_attention", "attention.cu", "applecider_tpu/ops/attention.py:35", e2,
+             times["k2"], times["k2_plain"], fb, fby, times["sdpa"]),
+            ("flash_attention_fwd", "flash_attention.cu",
+             "applecider_tpu/ops/flash_attention.py:162", ef, times["fwd"], times["fwd_plain"],
+             fb, fby, times["sdpa"]),
+            ("flash_attention_bwd", "flash_attention.cu",
+             "applecider_tpu/ops/flash_attention.py:200", eb, times["bwd"], times["bwd_plain"],
+             bb, bby, times["sdpa_bwd"]))
+    records = []
+    for kernel, src, replaces, err, ms, plain, bms, bby_, lib in rows:
+        log(f"zoo {kernel} {shape} bf16 (rate 0): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa {lib:.4f} ms (kernel/sdpa {ms / lib:.2f}), bound {bms:.5f} ms ({bby_})")
+        records.append(dict(name=f"{kernel}_spectravit", counter=kernel, route="cuda",
+                            source=f"applecider_tpu_torch/csrc/{src}", replaces=replaces,
+                            shape=shape, dtype="bfloat16", max_abs_err=err, ms=ms,
+                            plain_ms=plain, bound_ms=bms, bound_by=bby_, library_ms=lib))
+    del q, k, v, do, qs, ks, vs, lib_out
+    torch.cuda.empty_cache()
+    return records
+
+
+def check_zoo(card: str, device="cuda", model_overrides: dict | None = None,
+              shapes: dict | None = None, steps: int = 10, warmup: int = 3) -> dict:
+    """Phase 12: the model zoo on the card in bf16 at the published widths
+    and ``ZOO_BATCHES`` (``tools/profile_tasks.py``; ``model_overrides``,
+    ``shapes`` and ``steps`` shrink it for a dry run on the CPU); the zoo
+    path's launches are those of 12a's timed steps and predicts."""
+    import torch
+
+    from applecider_tpu_torch.config import load_defaults
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    shapes = shapes or ZOO_BATCHES
+    cfg = load_defaults().merged_with({"train": {"compute_dtype": "bfloat16"},
+                                       "model": model_overrides or {}})
+    workdir = REPO / "build" / "chip_smoke_zoo"
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        staged = zoo_staged_steps(card, workdir, cfg, dev, shapes, steps, warmup)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    vit_shape, vit_batch = shapes["SpectraViT"]
+    parity = zoo_vit_parity(cfg, dev, vit_shape, vit_batch)
+    records = time_zoo_attention(np.random.default_rng(12), dev) if dev.type == "cuda" else []
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches": staged["launches"], "staged": staged["staged"], "parity": parity,
+            "records": records}
+
+
 def main() -> int:
     import torch
 
@@ -3843,25 +4063,30 @@ def main() -> int:
         (tmp / "int8").mkdir()
         int8_served = check_int8_serving(card, model, model32, raw, tmp / "int8")
         log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    zoo = check_zoo(card)
+    records += zoo["records"]
     for r in records:
-        by_path = {"serving": serving["launches"][r["name"]],
-                   "raw_serving": raw["launches"][r["name"]],
-                   "training": training["launches"][r["name"]],
-                   "ladder": ladder_launches[r["name"]],
-                   "workflow_train": workflow["train_launches"][r["name"]],
-                   "workflow_serve": workflow["serve_launches"][r["name"]],
-                   "photometry_steps": photometry["staged_launches"][r["name"]],
-                   "photometry_protocol": photometry["protocol_launches"][r["name"]],
-                   "single_steps": single["staged_launches"][r["name"]],
-                   "single_protocol": single["protocol_launches"][r["name"]],
-                   "export_serving": deployed["launches"][r["name"]],
-                   "engine": engine["launches"][r["name"]],
-                   "remat": remat["launches"][r["name"]],
-                   "imported_serve": imported["serve_launches"][r["name"]],
-                   "int8_serve": int8_served["launches"][r["name"]]}
-        path = ("ladder" if r["name"].startswith(LADDER_PREFIX) else
-                "training" if r["name"] in TRAINING_KERNELS else
-                "int8_serve" if r["name"] in INT8_KERNELS else "serving")
+        name = r.get("counter", r["name"])  # the zoo's rows time a kernel at SpectraViT's shape
+        by_path = {"serving": serving["launches"][name],
+                   "raw_serving": raw["launches"][name],
+                   "training": training["launches"][name],
+                   "ladder": ladder_launches[name],
+                   "workflow_train": workflow["train_launches"][name],
+                   "workflow_serve": workflow["serve_launches"][name],
+                   "photometry_steps": photometry["staged_launches"][name],
+                   "photometry_protocol": photometry["protocol_launches"][name],
+                   "single_steps": single["staged_launches"][name],
+                   "single_protocol": single["protocol_launches"][name],
+                   "export_serving": deployed["launches"][name],
+                   "engine": engine["launches"][name],
+                   "remat": remat["launches"][name],
+                   "imported_serve": imported["serve_launches"][name],
+                   "int8_serve": int8_served["launches"][name],
+                   "zoo": zoo["launches"].get(name, 0)}
+        path = ("zoo" if "counter" in r else
+                "ladder" if name.startswith(LADDER_PREFIX) else
+                "training" if name in TRAINING_KERNELS else
+                "int8_serve" if name in INT8_KERNELS else "serving")
         r["launches"] = by_path[path]
         r["launches_by_path"] = by_path
     log(json.dumps({"kernels": records}))

@@ -6,6 +6,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,6 +40,8 @@ MODULES = [
     "applecider_tpu_torch.models.convnext",
     "applecider_tpu_torch.models.astrominn",
     "applecider_tpu_torch.models.fusion",
+    "applecider_tpu_torch.models.zoo",
+    "applecider_tpu_torch.models.experimental",
     "applecider_tpu_torch.infer",
     "applecider_tpu_torch.infer.stream",
     "applecider_tpu_torch.infer.serve",
@@ -63,6 +66,7 @@ MODULES = [
     "applecider_tpu_torch.utils.rng",
     "applecider_tpu_torch.utils.torch_port",
     "applecider_tpu_torch.utils.import_checkpoint",
+    "applecider_tpu_torch.utils.plots",
     "applecider_tpu_torch.datasets",
     "applecider_tpu_torch.datasets.loader",
     "applecider_tpu_torch.datasets.taxonomy",
@@ -197,6 +201,18 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         task = task_cls(cfg, device="cpu")
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(task, cfg, REPO / "build" / "unused")
+    from applecider_tpu_torch.models.zoo import ZOO
+    from applecider_tpu_torch.registry import get_model
+
+    batch = (np.zeros((2, 32, 32, 3), np.float32), np.zeros(2, np.int64))
+    for name in ZOO:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            get_model(name)(cfg)
+    task = get_model("SpectraConvNeXt")(
+        cfg.merged_with({"model": {"SpectraConvNeXt": {"depths": [1], "dims": [4]}}}), device="cpu")
+    assert next(task.init(batch).parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(task, cfg, REPO / "build" / "unused")
 
 
 def test_kernel_wrappers_take_cpu_or_cuda_only():

@@ -8,9 +8,10 @@ params, carried back by ``from_jax_params``; direct convs on the JAX side),
 ``Trainer.predict`` agrees with the JAX ``Trainer.predict`` and
 ``rt.serve(params=...)`` with the JAX ``rt.serve(params=...)``, alert by
 alert, within 1e-4 (atol; logits and probabilities). Each option the port
-has not ported raises and names itself. The fusion model with the TriPool
-spectra encoder trains, infers and serves, the serving run equal to
-``serve_alert_stream`` on the weights of ``best.pt``.
+has not ported raises and names itself; each zoo model trains and infers.
+The fusion model with the TriPool spectra encoder trains, infers and
+serves, the serving run equal to ``serve_alert_stream`` on the weights of
+``best.pt``.
 """
 
 import json
@@ -30,6 +31,7 @@ from applecider_tpu.datasets.loader import DataLoader as JaxDataLoader
 from applecider_tpu.models.fusion import AppleCiderTask
 from applecider_tpu.train.runtime import AppleCiderRuntime as JaxRuntime
 from applecider_tpu.train.trainer import Trainer as JaxTrainer
+from applecider_tpu_torch import registry
 from applecider_tpu_torch.datasets.fusion_dataset import FusionDataset
 from applecider_tpu_torch.datasets.loader import DataLoader
 from applecider_tpu_torch.datasets.photo_dataset import PhotoEventsDataset, load_photo_stats
@@ -262,14 +264,8 @@ def test_warmup_without_a_trained_run_warns(prepared, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,verb", [
-    ("model/name", "MetaModel", "train"),
-    ("model/name", "Informer", "train"),
-    ("model/name", "SpectraViT", "train"),
-    ("model/name", "BTSModel", "train"),
-    ("model/name", "GalSpecNet", "train"),
     ("parallel/multihost/enable", True, "train"),
     ("parallel/mesh_shape", [2, 4], "train"),
-    ("model/name", "SpectraConvNeXt", "train"),
 ])
 def test_unported_options_raise(prepared, tmp_path, key, value, verb):
     rt = _runtime(prepared, tmp_path, **{key: value})
@@ -280,6 +276,65 @@ def test_unported_options_raise(prepared, tmp_path, key, value, verb):
         else:
             rt.train()
     assert "ROADMAP.md" in str(err.value)
+
+
+class ZooBatches:
+    """Every zoo input in the layout the zoo's tasks read (images NHWC; the
+    fusion data set's cutouts are channel-first), drawn from a seed named
+    by ``data_location``: 10 samples of a 32 x 32 x 3 image, a 200-bin
+    spectrum, 24 metadata columns, 40 events of 7 features, a label."""
+
+    def __init__(self, config, location: str):
+        rng = np.random.default_rng(sum(location.encode()))
+        shapes = {"image": (32, 32, 3), "spectrum": (200,), "metadata": (24,),
+                  "photometry": (40, 7)}
+        self.samples = [{**{k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()},
+                         "label": int(rng.integers(0, 5))} for _ in range(10)]
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def sample(self, idx: int) -> dict:
+        return self.samples[idx]
+
+    def collate(self, samples: list) -> dict:
+        return {"data": {k: np.stack([s[k] for s in samples]) for k in samples[0]}}
+
+
+registry.register_dataset(ZooBatches, name="ZooBatches")
+
+# each zoo model at tiny widths, and its (n, classes) predictions
+ZOO_TINY = {
+    "BTSModel": ({"conv1_channels": 4, "conv2_channels": 4}, 5),
+    "GalSpecNet": ({"conv_channels": [1, 4, 4]}, 9),
+    "MetaModel": ({"hidden_dim": 8}, 5),
+    "Informer": ({"d_model": 8, "n_heads": 2, "n_layers": 1}, 5),
+    "SpectraViT": ({"backbone_dim": 16, "backbone_depth": 1, "s_dim": 8}, 9),
+    "SpectraEfficientNetV2": ({"arch": "tiny", "s_dim": 8, "head_features": 16}, 9),
+    "SpectraConvNeXt": ({"depths": [1, 1], "dims": [4, 8]}, 9),
+}
+
+
+@pytest.mark.parametrize("name", list(ZOO_TINY))
+def test_zoo_models_train_and_infer(prepared, tmp_path, name):
+    """Each zoo name (the JAX dotted one for Informer) trains through
+    ``AppleCiderRuntime.train`` on a data set whose batch carries every zoo
+    input key (image, spectrum, metadata, photometry), sized by its first
+    batch: finite losses, both checkpoints; then ``infer`` restores it,
+    sized from the infer set, and predicts every row."""
+    fields, classes = ZOO_TINY[name]
+    model = f"applecider_tpu.models.zoo.{name}Task" if name == "Informer" else name
+    rt = _runtime(prepared, tmp_path, **{"model/name": model, f"model/{name}": fields,
+                                         "train/epochs": 1}, **{
+        f"model_inputs/{phase}/data": {"dataset_class": "ZooBatches", "data_location": phase}
+        for phase in ("train", "validate", "infer")})
+    result = rt.train()
+    assert all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
+               for r in result["history"])
+    assert (result["run_dir"] / "checkpoints" / "last.pt").exists()
+    assert (result["run_dir"] / "checkpoints" / "best.pt").exists()
+    preds = rt.infer()
+    assert preds.shape == (len(rt.datasets["infer"]), classes) and np.isfinite(preds).all()
 
 
 @pytest.mark.parametrize("key,value", [

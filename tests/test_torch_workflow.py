@@ -335,14 +335,19 @@ def test_registry_resolves_fusion_names_and_refuses_the_rest():
                                         "train") is SpectraDataset
     assert registry.builder_from_config(load_config(REPO / "configs" / "astrominn.toml"),
                                         "infer") is ImageAndMetadataDataset
-    for name in ("MetaModel", "SpectraViT", "BTSModel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 7"):
-            registry.get_model(name)
+    from applecider_tpu_torch.models.zoo import ZOO, ZooTask
+
+    for name in ZOO:
+        cls = registry.get_model(name)
+        assert issubclass(cls, ZooTask) and cls.__name__ == f"{name}Task"
+        for key in (f"applecider_tpu.models.zoo.{name}Task",
+                    f"applecider_tpu_torch.models.zoo.{name}Task"):
+            assert registry.get_model(key) is cls
     for name in ("applecider_tpu.models.baseline_cls.BaselineCLS", "applecider_tpu.registry.x",
                  "NoSuchModel"):
         with pytest.raises(KeyError):
             registry.get_model(name)
-    with pytest.raises(KeyError, match="MetaModel is not ported yet"):
+    with pytest.raises(KeyError, match="never imports the JAX package"):
         registry.get_model("applecider_tpu.models.zoo.MetaModel")
     with pytest.raises(KeyError, match="No dataset_class"):
         registry.builder_from_config(load_config(), "train")
