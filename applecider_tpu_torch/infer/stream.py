@@ -24,6 +24,12 @@ light-curve length. Host packing
 arrays bit for bit.
 
 Everything runs on CUDA unless the caller passes ``device="cpu"``.
+
+With ``mesh=`` (``parallel.mesh.make_mesh``), the three streams run
+data-parallel over the ranks of a process group: each rank runs its slice of
+the packed batch's rows along the data axis (the compact spectra block, and
+a batch whose rows do not divide, whole on every rank), and the
+probabilities are gathered, so every rank returns every row in input order.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from torch import nn
 from applecider_tpu_torch.device import resolve_device
 from applecider_tpu_torch.ops import quant
 from applecider_tpu_torch.ops.merge_scan import seg_ids, seg_ids_reference
+from applecider_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_batch
 
 LOG_CONST = float(1.0 / np.log(10.0))
 N_BANDS = 3
@@ -344,14 +351,23 @@ class AlertStreamPipeline:
     spectrum and its embedding broadcasts over the batch (every SpectraNet
     op is per sample, so this equals a batch of zero spectra). It excludes
     ``compact_spectra``.
+
+    ``mesh``: each rank runs its data-axis rows of every batch (``shard``)
+    and the probabilities are gathered over the data axis; the compact
+    spectra block and ``spec_has`` stay whole (every rank's ``spec_gather``
+    indexes the full block), as does a batch whose rows do not divide.
     """
+
+    _COMPACT_REPLICATED = ("spec_wl", "spec_flux", "spec_valid", "spec_has")
 
     def __init__(self, model, stats_mean=None, stats_std=None,
                  wave_grid: Optional[np.ndarray] = None, compact_spectra: bool = False,
                  horizon_days: Optional[float] = 100.0, device="cuda", kernels: bool = True,
-                 skip_spectra: bool = False, quantize_scales: Optional[dict] = None):
+                 skip_spectra: bool = False, quantize_scales: Optional[dict] = None,
+                 mesh: Mesh | None = None):
         if compact_spectra and skip_spectra:
             raise ValueError("compact_spectra and skip_spectra are mutually exclusive")
+        self.mesh = mesh
         self.device = resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev != self.device:
@@ -372,8 +388,28 @@ class AlertStreamPipeline:
             model, mean, std, grid, None if horizon_days is None else float(horizon_days),
             bool(compact_spectra), bool(skip_spectra), bool(kernels))
 
+    def shard(self, raw: dict) -> "ShardedRaw":
+        """This rank's rows of a packed batch (NumPy or tensors) under the
+        mesh; a batch already sharded passes through."""
+        if isinstance(raw, ShardedRaw):
+            return raw
+        n = self.mesh.shape["data"]
+        B = raw["photo_t"].shape[0]
+        if B == 0 or B % n:
+            return ShardedRaw(raw, sharded=False)
+        whole = self._COMPACT_REPLICATED if self.program.compact_spectra else ()
+        return ShardedRaw({k: v if k in whole else shard_batch(v, self.mesh)
+                           for k, v in raw.items()}, sharded=True)
+
     @torch.inference_mode()
     def __call__(self, raw: dict) -> torch.Tensor:
+        if self.mesh is None:
+            return self._run(raw)
+        raw = self.shard(raw)
+        probs = self._run(raw)
+        return gather_rows(probs, self.mesh) if raw.sharded else probs
+
+    def _run(self, raw: dict) -> torch.Tensor:
         if raw["photo_t"].shape[0] == 0:
             return torch.zeros((0, self.model.num_classes), device=self.device)
         if self.quant_scales is not None:
@@ -393,6 +429,20 @@ class AlertStreamPipeline:
     def preprocess(self, raw: dict) -> dict:
         """Device preprocessing of a placed batch: the model's inputs."""
         return self.program.preprocess(raw)
+
+
+class ShardedRaw(dict):
+    """A packed batch as ``AlertStreamPipeline.shard`` leaves it: this
+    rank's rows (``sharded``), or every row on every rank."""
+
+    def __init__(self, items, sharded: bool):
+        super().__init__(items)
+        self.sharded = sharded
+
+    def to(self, device) -> "ShardedRaw":
+        """Every array copied to ``device`` as a tensor."""
+        return ShardedRaw({k: torch.as_tensor(v).to(device) for k, v in self.items()},
+                          self.sharded)
 
 
 # ------------------------------------------------------- host packing
@@ -529,7 +579,8 @@ class RoutedAlertStream:
     Each sub-batch is packed from its real alerts and padded to the next of
     ``batch_buckets`` by tiling its first packed row; pad rows are sliced
     off and results come back in input order. ``run_placed`` enqueues both
-    sub-batches before either is read back.
+    sub-batches before either is read back. ``mesh`` (in ``pipeline_kw``)
+    shards each sub-batch over the data axis and gathers its rows.
     """
 
     def __init__(self, model, batch_buckets=(8, 32, 64, 96, 128, 192, 256, 384, 512),
@@ -546,7 +597,7 @@ class RoutedAlertStream:
         """Split, pack and copy both sub-batches to the device without
         running them; the opaque result goes to ``run_placed``."""
         parts = []
-        for with_spectrum, max_spec in ((True, 512), (False, 1)):
+        for pipe, with_spectrum, max_spec in ((self.full, True, 512), (self.nospec, False, 1)):
             idx = [i for i, s in enumerate(samples) if _has_spectrum(s) == with_spectrum]
             if not idx:
                 parts.append((None, idx))
@@ -556,7 +607,11 @@ class RoutedAlertStream:
             pad = self._bucket(len(idx)) - len(idx)
             if pad:  # pack the real alerts once, then tile the first row
                 raw = {k: np.concatenate([v, np.repeat(v[:1], pad, axis=0)]) for k, v in raw.items()}
-            parts.append(({k: torch.from_numpy(v).to(self.device) for k, v in raw.items()}, idx))
+            if pipe.mesh is not None:  # copy this rank's rows only
+                parts.append((pipe.shard(raw).to(self.device), idx))
+            else:
+                parts.append(({k: torch.from_numpy(v).to(self.device) for k, v in raw.items()},
+                              idx))
         return len(samples), parts
 
     def run_placed(self, placed):
@@ -626,7 +681,9 @@ class FusedSpectraStream:
     spectra that exist (row 0 the zero spectrum, S rounded up to
     ``spec_buckets``), and the spectra embeddings gather back to the batch.
     Every SpectraNet op is per sample, so this equals running the whole
-    batch with zero spectra where there are none.
+    batch with zero spectra where there are none. ``mesh`` (in
+    ``pipeline_kw``): ``place_packed`` copies this rank's rows and the whole
+    spectra block, and the forward gathers the rows.
     """
 
     def __init__(self, model, spec_buckets=(0, 4, 8, 16, 32, 64, 96, 112, 128, 192, 256,
@@ -644,7 +701,10 @@ class FusedSpectraStream:
         return raw if host_only else self.place_packed(raw)
 
     def place_packed(self, raw: dict) -> dict:
-        """Copy a ``place(..., host_only=True)`` dict to the device."""
+        """Copy a ``place(..., host_only=True)`` dict to the device (under a
+        mesh, this rank's rows of it)."""
+        if self.pipe.mesh is not None:
+            return self.pipe.shard(raw).to(self.device)
         return {k: torch.from_numpy(v).to(self.device) for k, v in raw.items()}
 
     def run_placed(self, placed: dict):

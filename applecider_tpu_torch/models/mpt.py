@@ -15,6 +15,11 @@ The mask's random stream is not part of the contract; its rule is. In train
 mode it draws from the device generator the trainer attaches to the module
 (``MPTModule.dropout_rng``); in eval mode from a generator seeded 0, as the
 JAX evaluation draws from ``PRNGKey(0)``.
+
+Over a data-parallel mesh the masked means are those of the global batch,
+as the JAX step computes them over global arrays: each sum and the count of
+masked events are all-reduced over the data axis (``parallel.mesh.data_sum``,
+through ``MPTModule.mesh``, which the Trainer sets) before the division.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from applecider_tpu_torch.models.base import Task, adamw
 from applecider_tpu_torch.models.baseline_cls import BaselineCLSEncoder, BaselineCLSTask
 from applecider_tpu_torch.models.layers import Linear, init_weights, resolve_remat
 from applecider_tpu_torch.ops.dropout import DropoutRNG
+from applecider_tpu_torch.parallel.mesh import Mesh, data_sum
 from applecider_tpu_torch.registry import register_model
 
 
@@ -91,15 +97,19 @@ class MPTModule(nn.Module):
         self.head_band = Linear(d_model, 3)
         self.head_dt = Linear(d_model, 1)
         self.dropout_rng: DropoutRNG | None = None  # the mask's generator in train mode
+        self.mesh: Mesh | None = None  # the data axis the masked means reduce over
 
     def forward(self, x, pad_mask, kernels: bool = True):
         h = self.trunk(x, pad_mask, kernels=kernels)[:, 1:].float()
         return self.head_flux(h)[..., 0], self.head_band(h), self.head_dt(h)[..., 0]
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+    """The mean of ``x`` over the masked events of the global batch: the sum
+    and the count reduced over ``mesh``'s data axis (none: this batch's)."""
     m = mask.float()
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+    total, count = data_sum(torch.stack([torch.sum(x * m), torch.sum(m)]), mesh)
+    return total / torch.clamp(count, min=1.0)
 
 
 @register_model(name="MPT")
@@ -136,11 +146,12 @@ class MPTTask(Task):
             mask = band_stratified_mask(bands, pad_mask, self.mask_p, gen)
         f_hat, b_hat, dt_hat = self.module(apply_event_mask(data, mask), pad_mask,
                                            kernels=kernels)
-        loss_f = _masked_mean((f_hat - data[..., 2]) ** 2, mask)
+        mesh = self.module.mesh
+        loss_f = _masked_mean((f_hat - data[..., 2]) ** 2, mask, mesh)
         logp = F.log_softmax(b_hat, dim=-1)
-        loss_b = _masked_mean(-torch.gather(logp, -1, bands[..., None])[..., 0], mask)
+        loss_b = _masked_mean(-torch.gather(logp, -1, bands[..., None])[..., 0], mask, mesh)
         dt_gt = F.pad(data[:, 1:, 1], (0, 1))  # the next token's dt, 0 after the last
-        loss_dt = _masked_mean((dt_hat - dt_gt) ** 2, mask)
+        loss_dt = _masked_mean((dt_hat - dt_gt) ** 2, mask, mesh)
         lf, lb, ldt = self.lambdas
         loss = lf * loss_f + lb * loss_b + ldt * loss_dt
         metrics = {"loss": loss, "loss_f": loss_f, "loss_b": loss_b, "loss_dt": loss_dt}

@@ -59,6 +59,7 @@ from applecider_tpu_torch.models.layers import LayerNorm, Linear, TransformerEnc
 from applecider_tpu_torch.ops.conv1d import conv1d_direct, max_pool1d
 from applecider_tpu_torch.ops.dropout import FastDropout
 from applecider_tpu_torch.ops.losses import cross_entropy
+from applecider_tpu_torch.parallel.mesh import Mesh, data_sum
 from applecider_tpu_torch.registry import register_model
 
 
@@ -373,11 +374,14 @@ class BatchNorm(nn.Module):
     statistics (f32, the variance as E[x^2] - E[x]^2 clipped at 0), in
     ``eval()`` the ``running_mean``/``running_var`` buffers, which no mode
     updates (the JAX task drops the updated ``batch_stats``). Output in
-    ``dtype`` (f32 when None)."""
+    ``dtype`` (f32 when None). Over a data-parallel ``mesh`` (set by the
+    Trainer) the statistics are the global batch's: the sums of x and x^2
+    and the count are all-reduced over the data axis."""
 
     def __init__(self, features: int, eps: float, dtype: torch.dtype | None = None):
         super().__init__()
         self.eps, self.dtype = eps, dtype
+        self.mesh: Mesh | None = None
         self.weight = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -390,7 +394,15 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        if self.training:
+        if self.training and self.mesh is not None:
+            axes = tuple(range(x.dim() - 1))
+            count = torch.full((1,), xf[..., 0].numel(), dtype=torch.float32, device=x.device)
+            sums = data_sum(torch.cat([xf.sum(axes), torch.square(xf).sum(axes), count]),
+                            self.mesh)
+            C = x.shape[-1]
+            mean = sums[:C] / sums[-1]
+            var = torch.clamp(sums[C:2 * C] / sums[-1] - torch.square(mean), min=0.0)
+        elif self.training:
             axes = tuple(range(x.dim() - 1))
             mean = xf.mean(axes)
             var = torch.clamp(torch.square(xf).mean(axes) - torch.square(mean), min=0.0)

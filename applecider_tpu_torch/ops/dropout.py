@@ -12,7 +12,9 @@ in the JAX package, so plain PyTorch here.
 ``DropoutRNG`` holds the two generators of a training run: a CPU generator
 that hands each K4 attention call its Philox seed as a host integer (no
 read-back from the card), and a generator on the model's device for the
-``FastDropout`` bits. ``attach_dropout_rng`` points every dropout site of a
+``FastDropout`` bits. ``stream`` (a rank's data index) folds into the seed,
+so each rank of a data-parallel run draws its own bits, K4 seeds and MPT
+mask for its rows; stream 0 is the seed itself. ``attach_dropout_rng`` points every dropout site of a
 model at one; a site without one draws from PyTorch's default generators.
 
 ``checkpoint(fn, *args, rngs=...)`` runs ``fn`` under PyTorch's
@@ -31,6 +33,7 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -40,9 +43,11 @@ SEED_BOUND = 2**31 - 1  # K4 seeds are drawn in [0, int32 max), as the JAX packa
 
 class DropoutRNG:
     """CPU generator for K4 seeds and a device generator for dropout bits,
-    both seeded from ``seed``."""
+    both seeded from ``seed`` and ``stream``."""
 
-    def __init__(self, seed: int, device: torch.device | str = "cpu"):
+    def __init__(self, seed: int, device: torch.device | str = "cpu", stream: int = 0):
+        if stream:
+            seed = int(np.random.SeedSequence([int(seed), int(stream)]).generate_state(1)[0])
         self.cpu = torch.Generator().manual_seed(int(seed))
         self.device = torch.Generator(device=torch.device(device)).manual_seed(int(seed))
 

@@ -65,13 +65,19 @@ from applecider_tpu_torch.models.base import Task
 from applecider_tpu_torch.models.fusion import AppleCiderTask
 from applecider_tpu_torch.ops import attention, ln_gelu, merge_scan  # noqa: F401  (the custom ops)
 from applecider_tpu_torch.registry import get_dataset_class, get_model
-from applecider_tpu_torch.train.trainer import Trainer, refuse_unported
+from applecider_tpu_torch.parallel.mesh import make_mesh
+from applecider_tpu_torch.parallel.multihost import (
+    broadcast_str, maybe_initialize, process_index,
+)
+from applecider_tpu_torch.train.trainer import Trainer
 
 
 class AppleCiderRuntime:
     def __init__(self, config_file=None, overrides=None, workdir: str | Path | None = None,
                  device="cuda"):
         self.config: Config = load_config(config_file, overrides)
+        # the process group first: under torchrun it picks this process's card
+        maybe_initialize(self.config, device)
         self.device = resolve_device(device)
         self.workdir = Path(workdir or self.config.get_path("run.output_dir", default="./results"))
         self.datasets: dict = {}
@@ -117,11 +123,15 @@ class AppleCiderRuntime:
         return ds_cls(self.config, location) if location else ds_cls(self.config)
 
     def _loader(self, dataset, shuffle: bool) -> DataLoader:
-        refuse_unported(self.config)
+        """The configured loader, strided by this rank's data index over the
+        mesh's data axis (one shard without a process group)."""
         dl = self.config.section("data_loader")
+        mesh = make_mesh(shape=tuple(self.config.get_path("parallel.mesh_shape", [-1, 1])),
+                         axes=tuple(self.config.get_path("parallel.mesh_axes", ["data", "model"])))
         return DataLoader(dataset, batch_size=int(dl.get("batch_size", 32)),
                           shuffle=shuffle and bool(dl.get("shuffle", True)),
-                          seed=int(dl.get("seed", 42)), drop_last=bool(dl.get("drop_last", False)))
+                          seed=int(dl.get("seed", 42)), drop_last=bool(dl.get("drop_last", False)),
+                          num_shards=mesh.shape["data"], shard_index=mesh.index("data"))
 
     # ---------------------------------------------------------------- verbs
     def prepare(self) -> dict:
@@ -132,12 +142,15 @@ class AppleCiderRuntime:
         return self.datasets
 
     def _new_run_dir(self, verb: str) -> Path:
-        stamp = _dt.datetime.now().strftime("%Y%m%d-%H%M%S-%f")
+        """A timestamped directory under ``workdir``: process 0's stamp on
+        every process, ``run.json`` written by process 0."""
+        stamp = broadcast_str(_dt.datetime.now().strftime("%Y%m%d-%H%M%S-%f"))
         name = str(self.config.get_path("model.name", default="model")).split(".")[-1]
         run_dir = self.workdir / f"{stamp}-{verb}-{name}"
         run_dir.mkdir(parents=True, exist_ok=True)
-        (run_dir / "run.json").write_text(json.dumps({"verb": verb, "model": name,
-                                                      "timestamp": stamp}))
+        if process_index() == 0:
+            (run_dir / "run.json").write_text(json.dumps({"verb": verb, "model": name,
+                                                          "timestamp": stamp}))
         return run_dir
 
     def _latest_run_dir(self) -> Path:
@@ -183,7 +196,8 @@ class AppleCiderRuntime:
         loader = self._loader(ds, shuffle=False)
         out_dir = self._new_run_dir("infer")
         preds = trainer.predict(loader, kernels=kernels)
-        np.save(out_dir / "predictions.npy", preds)
+        if process_index() == 0:  # every process holds every row
+            np.save(out_dir / "predictions.npy", preds)
         return preds
 
     # -------------------------------------------------------------- serving
@@ -230,7 +244,9 @@ class AppleCiderRuntime:
         ``params`` (a state_dict), else the most recent trained run's.
         Writes ``alerts.jsonl`` and ``serve.json`` into a timestamped run
         dir; returns the summary of ``serve_alert_stream`` with
-        ``run_dir``.
+        ``run_dir``. Under a process group every process serves every alert,
+        as the JAX runtime does, and process 0 alone writes the files (the
+        streams' ``mesh=`` is the data-parallel serving path).
         """
         from applecider_tpu_torch.infer.serve import iter_alert_samples, serve_alert_stream
 
@@ -249,13 +265,14 @@ class AppleCiderRuntime:
             length_buckets=tuple(sec.get("length_buckets", (63, 127, 191, 255, 257))),
             stats_mean=mean,
             stats_std=std,
-            out_jsonl=out_dir / "alerts.jsonl",
+            out_jsonl=out_dir / "alerts.jsonl" if process_index() == 0 else None,
             horizon_days=self._serve_horizon(),
             device=self.device,
             int8=bool(sec.get("int8", False)),
         )
-        (out_dir / "serve.json").write_text(json.dumps(
-            {k: v for k, v in summary.items() if k != "results"}))
+        if process_index() == 0:
+            (out_dir / "serve.json").write_text(json.dumps(
+                {k: v for k, v in summary.items() if k != "results"}))
         summary["run_dir"] = out_dir
         return summary
 

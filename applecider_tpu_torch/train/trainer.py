@@ -1,5 +1,5 @@
 """Training loop of any ``Task`` (counterpart of
-``applecider_tpu/train/trainer.py`` for one process).
+``applecider_tpu/train/trainer.py``).
 
 ``Trainer.train_step`` does what the JAX package's jitted step does: the
 task's forward and loss in training mode with every dropout site live, the
@@ -38,9 +38,23 @@ holding the weights that were validated, appends one record per epoch to
 dataset order; ``restore_weights`` loads the weights of ``best``, or of
 ``last`` where there is no ``best``, for inference.
 
-The JAX Trainer's options that the port has not yet, the parallel ones
-(ROADMAP.md Queue A item 7), raise when a config sets them away from their
-defaults (``refuse_unported``); none is ignored.
+Data parallel (``parallel/``): the Trainer starts the process group from
+``parallel.multihost`` and lays its ranks out as ``parallel.mesh_shape``
+over ``parallel.mesh_axes``. Each rank takes its shard of every loader
+(``DataLoader(num_shards=, shard_index=)`` by its data index) and a
+replica of the weights, broadcast from rank 0. After the backward the
+gradient is all-reduced over the data axis as a mean, so the clip,
+``grad_norm``, accumulation, freeze, plateau, EMA and remat all see the
+global batch's gradient on every rank; the floating metrics are averaged
+and the integer ones (counts) summed. A loss that is not a plain mean over
+rows reduces its sums across the data axis itself (MPT's masked mean, the
+zoo's train-mode BatchNorm; ``parallel.mesh.data_sum``, given to every
+submodule with a ``mesh`` attribute). Each data rank draws its own dropout
+bits, K4 seeds and MPT mask (``DropoutRNG(stream=)``). ``evaluate`` and
+``predict`` gather their rows across the data axis, so every rank takes
+the same decisions and returns every row; rank 0 alone writes the
+checkpoints and ``metrics.jsonl``, and every rank reads them. With no
+process group every one of these hooks is a no-op.
 """
 
 from __future__ import annotations
@@ -51,42 +65,42 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from applecider_tpu_torch.config import Config
 from applecider_tpu_torch.device import resolve_device
 from applecider_tpu_torch.models.base import Task
 from applecider_tpu_torch.ops.dropout import DropoutRNG, attach_dropout_rng, checkpoint
 from applecider_tpu_torch.ops.metrics import classification_report
+from applecider_tpu_torch.parallel.mesh import Mesh, gather_rows, make_mesh, replicate
+from applecider_tpu_torch.parallel.multihost import (
+    allgather_host_rows, barrier, host_local_batch_to_global, local_rows, maybe_initialize,
+)
 from applecider_tpu_torch.train.optim import (
     EMA, EarlyStopping, GradAccumulator, ReduceLROnPlateau, clip_by_global_norm_, set_lr_scale,
     swapped_weights, trainable_parameters,
 )
 from applecider_tpu_torch.utils.observability import grad_norm
 
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 7 (multi-GPU and multi-host)"
-
-
-def refuse_unported(cfg: Config) -> None:
-    """Raise for each option the JAX Trainer has and the port has not yet,
-    when ``cfg`` sets it away from its default, naming the option and its
-    ROADMAP item."""
-    unported = [
-        ("parallel.multihost.enable", bool(cfg.get_path("parallel.multihost.enable", False)),
-         _PARALLEL_ITEM),
-        ("parallel.mesh_shape", list(cfg.get_path("parallel.mesh_shape", [-1, 1])) != [-1, 1],
-         _PARALLEL_ITEM),
-    ]
-    for name, is_set, item in unported:
-        if is_set:
-            raise NotImplementedError(
-                f"{name} = {cfg.get_path(name)!r} is not ported to applecider_tpu_torch yet "
-                f"({item}); leave it at its default")
+def attach_mesh(model: torch.nn.Module, mesh: Mesh | None) -> None:
+    """Every submodule with a ``mesh`` attribute reduces over ``mesh``."""
+    for m in model.modules():
+        if hasattr(m, "mesh"):
+            m.mesh = mesh
 
 
 class Trainer:
     def __init__(self, task: Task, cfg: Config, workdir: str | Path, device="cuda",
-                 seed: int | None = None):
-        refuse_unported(cfg)
+                 seed: int | None = None, mesh: Mesh | None = None):
+        """``mesh``: the ranks' layout; by default ``parallel.mesh_shape``
+        over ``parallel.mesh_axes`` of the process group that
+        ``parallel.multihost`` starts (one rank without one)."""
+        self.process_index, self.process_count = maybe_initialize(cfg, device)
+        if mesh is None:
+            mesh = make_mesh(shape=tuple(cfg.get_path("parallel.mesh_shape", [-1, 1])),
+                             axes=tuple(cfg.get_path("parallel.mesh_axes", ["data", "model"])))
+        self.mesh = mesh
+        self.data_index = mesh.index("data")
         remat = cfg.get_path("train.remat", False)
         if not isinstance(remat, bool):
             raise ValueError(f"train.remat = {remat!r}: expected true or false")
@@ -96,8 +110,10 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = task.module.to(self.device).train().requires_grad_(True)
+        replicate(self.model, mesh)
+        attach_mesh(self.model, mesh if mesh.reduces("data") else None)
         self.seed = int(cfg.get_path("train.seed", 42) if seed is None else seed)
-        self.rng = DropoutRNG(self.seed, self.device)
+        self.rng = DropoutRNG(self.seed, self.device, stream=self.data_index)
         attach_dropout_rng(self.model, self.rng)
         self.trainable = [p for _, p in trainable_parameters(
             self.model, cfg.get_path("train.freeze_params", []))]
@@ -161,40 +177,98 @@ class Trainer:
         self._buffers_checked = True
         return out
 
+    def reduce_gradients(self) -> None:
+        """Every gradient replaced by its mean over the mesh's data axis, in
+        one all-reduce of a flat buffer (a parameter without a gradient
+        gets the mean of zeros and the others'); nothing without a process
+        group."""
+        if not self.mesh.reduces("data"):
+            return
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        dist.all_reduce(flat, group=self.mesh.group("data"))
+        flat /= self.mesh.shape["data"]
+        offset = 0
+        for p in params:
+            p.grad = flat[offset: offset + p.numel()].view_as(p)
+            offset += p.numel()
+
+    def reduce_metrics(self, metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The step's metrics over the global batch: floating ones (batch
+        means) averaged over the data axis, integer ones (counts) summed."""
+        if not self.mesh.reduces("data"):
+            return metrics
+        group, n = self.mesh.group("data"), self.mesh.shape["data"]
+        out = dict(metrics)
+        for floating in (True, False):
+            keys = [k for k, v in metrics.items() if v.is_floating_point() == floating]
+            if not keys:
+                continue
+            stacked = torch.stack([metrics[k].to(torch.float32 if floating else torch.int64)
+                                   for k in keys])
+            dist.all_reduce(stacked, group=group)
+            if floating:
+                stacked /= n
+            out.update({k: v.to(metrics[k].dtype) for k, v in zip(keys, stacked)})
+        return out
+
     def train_step(self, batch, kernels: bool = True) -> dict[str, torch.Tensor]:
         """One microbatch on ``batch`` (device tensors from ``to_device``);
         metrics stay on the device."""
         self.model.zero_grad(set_to_none=True)
         loss, aux = self.loss(batch, train=True, kernels=kernels)
         loss.backward()
+        self.reduce_gradients()
         norm = grad_norm(p.grad for p in self.model.parameters())
         self.apply_gradients()
         self.step += 1
         if self.ema is not None:
             self.ema.update(self.model)
-        metrics = {k: v.detach() for k, v in aux["metrics"].items()}
+        metrics = self.reduce_metrics({k: v.detach() for k, v in aux["metrics"].items()})
         metrics["grad_norm"] = norm
         return metrics
+
+    def _check_loader(self, loader) -> None:
+        """A loader must be sharded over the mesh's data axis, as this rank's
+        share: otherwise every rank would take the same rows."""
+        n = self.mesh.shape["data"]
+        shards = (int(getattr(loader, "num_shards", 1)), int(getattr(loader, "shard_index", 0)))
+        if self.mesh.distributed and shards != (n, self.data_index):
+            raise ValueError(
+                f"the loader is shard {shards[1]} of {shards[0]}, but this rank is data index "
+                f"{self.data_index} of {n}: build it with DataLoader(num_shards={n}, "
+                f"shard_index={self.data_index})")
+
+    def _local_arrays(self, host_batch) -> tuple:
+        return host_local_batch_to_global(self.task.to_tensor(host_batch), self.mesh)
 
     @torch.no_grad()
     def evaluate(self, loader) -> dict[str, float]:
         """The loss (the mean over batches, weighted by their sizes) and,
         for a task with logits, the scalars of ``classification_report`` of
         their softmax, over ``loader``, in eval mode without autograd."""
+        self._check_loader(loader)
         probs, labels, losses, sizes = [], [], [], []
         for host_batch in loader:
-            arrays = self.task.to_tensor(host_batch)
+            arrays = self._local_arrays(host_batch)
             loss, aux = self.task.loss(self.to_device(arrays), train=False)
             raw_labels = np.asarray(arrays[-1])
             losses.append(float(loss))
             sizes.append(len(raw_labels))
             if aux.get("logits") is not None:
-                probs.append(torch.softmax(aux["logits"].float(), dim=-1).cpu().numpy())
+                probs.append(local_rows(torch.softmax(aux["logits"].float(), dim=-1),
+                                        len(raw_labels)))
             labels.append(raw_labels.argmax(-1) if raw_labels.ndim > 1 else raw_labels)
-        mean_loss = float(np.average(np.asarray(losses), weights=np.asarray(sizes, np.float64)))
+        # the size-weighted mean over every rank's batches
+        sizes = np.asarray(sizes, np.float64)
+        sums = np.array([np.multiply(np.asarray(losses, np.float64), sizes).sum(), sizes.sum()])
+        sums = allgather_host_rows(sums[None], self.mesh).sum(axis=0)
+        mean_loss = float(sums[0] / sums[1])
         if not probs:  # pretraining tasks expose no logits
             return {"loss": mean_loss}
-        report = classification_report(np.concatenate(probs), np.concatenate(labels))
+        report = classification_report(allgather_host_rows(np.concatenate(probs), self.mesh),
+                                        allgather_host_rows(np.concatenate(labels), self.mesh))
         report = {k: v for k, v in report.items() if not isinstance(v, (dict, np.ndarray))}
         report["loss"] = mean_loss
         return report
@@ -219,9 +293,11 @@ class Trainer:
             state["plateau"] = [self.plateau.best, self.plateau.bad_epochs, self.plateau.scale]
         if self.accum is not None:
             state["grad_accum"] = self.accum.state_dict()
-        tmp = path.with_name(path.name + ".tmp")
-        torch.save(state, tmp)
-        tmp.replace(path)
+        if self.process_index == 0:  # one writer; every rank reads
+            tmp = path.with_name(path.name + ".tmp")
+            torch.save(state, tmp)
+            tmp.replace(path)
+        barrier()
 
     def restore_checkpoint(self, tag: str = "last") -> int:
         """Load ``tag`` if it exists; returns the epoch to start from. A
@@ -264,14 +340,44 @@ class Trainer:
     def predict(self, loader, kernels: bool = True) -> np.ndarray:
         """``task.predict`` (logits, or probabilities where the task's
         ``use_probabilities`` is set) for every sample ``loader`` yields, in
-        its order, as float32, without autograd."""
+        its order, as float32, without autograd.
+
+        Over a mesh every rank returns every row of the data set in dataset
+        order: the shards' rows are gathered and put back through the
+        loader's ``shard_emit_plan``, and the rows no shard emits (the
+        common-length cut, drop_last) are predicted on every rank
+        (``_predict_replicated``)."""
+        self._check_loader(loader)
+        plan = loader.shard_emit_plan() if self.mesh.distributed else None
         out = [self.task.predict(self.to_device(self.task.to_tensor(b)), kernels=kernels)
                for b in loader]
-        return torch.cat(out).float().cpu().numpy()
+        if plan is None:
+            return torch.cat(out).float().cpu().numpy()
+        leftover = self._predict_replicated(loader.dataset, plan["leftover"], kernels)
+        order = np.concatenate(plan["per_shard"])
+        local = torch.cat(out).float() if out else torch.zeros(
+            (0, *leftover.shape[1:]), device=self.device)
+        rows = gather_rows(local, self.mesh).cpu().numpy()
+        full = np.empty((order.size + leftover.shape[0], *rows.shape[1:]), np.float32)
+        full[order] = rows
+        if leftover.size:
+            full[plan["leftover"]] = leftover
+        return full
+
+    def _predict_replicated(self, dataset, indices, kernels: bool = True) -> np.ndarray:
+        """``task.predict`` of ``indices``, the same rows on every rank (no
+        collective)."""
+        idx = [int(i) for i in indices]
+        if not idx:
+            return np.zeros((0,), np.float32)
+        batch = self.task.to_tensor(dataset.collate([dataset.sample(i) for i in idx]))
+        return self.task.predict(self.to_device(batch), kernels=kernels).float().cpu().numpy()
 
     def _log(self, record: dict) -> None:
-        with open(self._log_file, "a") as f:
-            f.write(json.dumps(record) + "\n")
+        if self.process_index == 0:  # every rank holds the same record
+            with open(self._log_file, "a") as f:
+                f.write(json.dumps(record) + "\n")
+        barrier()
 
     # ------------------------------------------------------------------ fit
     def fit(self, train_loader, val_loader=None, epochs: int | None = None, pruning_hook=None,
@@ -296,13 +402,14 @@ class Trainer:
         best_metric = -np.inf
         history = []
         last_epoch = start_epoch - 1
+        self._check_loader(train_loader)
         for epoch in range(start_epoch, epochs):
             last_epoch = epoch
             train_loader.set_epoch(epoch)
             t0 = time.perf_counter()
             losses, metrics = [], {}
             for host_batch in train_loader:
-                metrics = self.train_step(self.to_device(self.task.to_tensor(host_batch)))
+                metrics = self.train_step(self.to_device(self._local_arrays(host_batch)))
                 losses.append(metrics["loss"])
             record = {"epoch": epoch,
                       "train_loss": float(torch.stack(losses).mean()) if losses else float("nan"),

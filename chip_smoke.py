@@ -199,9 +199,31 @@ Phases, in order; any failure exits non-zero before the result line:
    forward and backward at SpectraViT's shape (B = 64, H = 8, L = 197, hd
    = 32, bf16, rate 0, no mask) against their twins, timed beside them,
    SDPA and the bound;
-13. one JSON line describing each kernel (the zoo's three rows with
-   ``counter`` naming the launch counter of the kernel they time), then
-   the result line.
+13. data parallel on ``torch.distributed`` (``parallel/``), each rank a
+   spawned process, every rendezvous and collective with a timeout: (a) one
+   rank over NCCL, ``Trainer.fit`` through ``[parallel.multihost]`` on the
+   fusion model at the published widths, bf16, B = 256, dropout live, 6
+   steps of phase 4's data: the loss finite, the parameters changed,
+   phase 4's launches a step, step ms, peak GiB and the gradient
+   all-reduce's ms a step; (b) two ranks on the one card over gloo (NCCL
+   expects a card a rank): gloo's all-reduce, broadcast and all-gather on
+   card tensors, then f32 (TF32 off, dropout 0) against this process alone
+   on the same data and weights: ``predict`` in dataset order on the
+   starting weights within 1e-5 at 128 and 3 rows a forward a rank (rows
+   no shard emits included), 3 steps of global batch 256 (128 a rank) with
+   losses within 1e-4 relative, SpectraNet's parameter updates in norm
+   (5e-2) and every other parameter within 1e-4 (the attention's key bias
+   within 3 * lr a step), one run directory (``AppleCiderRuntime``) and one
+   checkpoint writer;
+   then two bf16 steps with dropout live: finite losses, each rank's
+   launches, the ranks' dropout masks different; (c) ``FusedSpectraStream
+   (mesh=)`` on the two ranks, f32, the first 512 alerts of phase 3's
+   workload, within 1e-5 of the unsharded stream, K1, K2 and K3f launched
+   on each rank;
+14. one JSON line describing each kernel (the zoo's three rows with
+   ``counter`` naming the launch counter of the kernel they time; every
+   record's ``launches_by_path`` with ``ddp``, phase 13's counted runs
+   summed over ranks), then the result line.
 
 It imports nothing of JAX.
 """
@@ -4018,6 +4040,395 @@ def check_zoo(card: str, device="cuda", model_overrides: dict | None = None,
             "records": records}
 
 
+# ------------------------------------------------------------- phase 13
+DDP_TIMEOUT_S = 120  # the rendezvous and every collective of phase 13
+DDP_STEPS, DDP_BATCH = 6, 256  # 13a
+PARITY_STEPS, PARITY_BATCH, PARITY_PREDICT = 3, 256, 259  # 13b, global batch
+DDP_SERVE_ALERTS = 512  # 13c: the first of phase 3's alerts
+
+
+def _ddp_config(tmp: Path, world: int, rank: int, backend: str | None = None,
+                model_overrides: dict | None = None, **train):
+    """The default config at the published widths (or ``model_overrides``)
+    with ``[parallel.multihost]`` on a ``file://`` rendezvous under ``tmp``."""
+    from applecider_tpu_torch.config import load_defaults
+
+    mh = {"enable": True, "coordinator_address": f"file://{tmp / 'rendezvous'}",
+          "num_processes": world, "process_id": rank, "timeout_s": DDP_TIMEOUT_S}
+    if backend:
+        mh["backend"] = backend
+    return load_defaults().merged_with({**(model_overrides or {}), "train": train,
+                                        "parallel": {"multihost": mh}})
+
+
+def _timed_allreduce(trainer, on_card: bool) -> list:
+    """Wrap ``trainer.reduce_gradients`` in CUDA events; returns the list of
+    event pairs (read after a synchronise)."""
+    import torch
+
+    events = []
+    reduce = trainer.reduce_gradients
+
+    def timed():
+        if not on_card:
+            return reduce()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        reduce()
+        ev[1].record()
+        events.append(ev)
+
+    trainer.reduce_gradients = timed
+    return events
+
+
+def _step_losses(trainer) -> list:
+    """Wrap ``trainer.train_step`` to keep each step's loss (a tensor)."""
+    losses = []
+    step = trainer.train_step
+
+    def recorded(batch, kernels=True):
+        out = step(batch, kernels)
+        losses.append(out["loss"].detach())
+        return out
+
+    trainer.train_step = recorded
+    return losses
+
+
+def ddp_nccl_rank(rank: int, world: int, tmp: Path, device: str, model_overrides, batch: int,
+                  steps: int) -> dict:
+    """13a, a spawned rank: ``Trainer.fit`` through ``[parallel.multihost]``
+    on the card's own backend (NCCL; gloo on the CPU), bf16, dropout live."""
+    import torch
+    import torch.distributed as dist
+
+    from applecider_tpu_torch.datasets.loader import DataLoader
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.fusion import AppleCiderTask
+    from applecider_tpu_torch.testing import SyntheticFusionDataset
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    on_card = device != "cpu"
+    cfg = _ddp_config(tmp, world, rank, model_overrides=model_overrides)
+    model = build_fusion_model(cfg, device=device, dtype=torch.bfloat16,
+                               generator=torch.Generator().manual_seed(0))
+    before = [p.detach().clone() for p in model.parameters()]
+    trainer = Trainer(AppleCiderTask(cfg, model), cfg, tmp / "run", device=device)
+    loader = DataLoader(SyntheticFusionDataset(batch * steps * world, seed=2), batch_size=batch,
+                        seed=0, drop_last=True, num_shards=trainer.mesh.shape["data"],
+                        shard_index=trainer.data_index)
+    times = _timed_steps(trainer) if on_card else []
+    reduces = _timed_allreduce(trainer, on_card)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    rec = trainer.fit(loader, epochs=1)["history"][0]
+    launches = _kernel_launches(counters)
+    changed = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, model.parameters()))
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "loss": rec["train_loss"], "steps": rec["steps"], "changed": changed,
+            "n_params": len(before), "launches": launches,
+            "step_ms": [t * 1e3 for t in times],
+            "allreduce_ms": [a.elapsed_time(b) for a, b in reduces],
+            "grad_mb": sum(p.numel() for p in model.parameters()) * 4 / 2**20,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")}
+
+
+def _zero_dropout(model) -> None:
+    """Every dropout site of ``model`` at rate 0 (AstroMiNN's rates are
+    fixed, not configured)."""
+    from applecider_tpu_torch.ops.dropout import FastDropout
+
+    for m in model.modules():
+        if isinstance(m, FastDropout):
+            m.rate = 0.0
+
+
+def _parity_fit(cfg, device: str, workdir: Path, batch: int) -> dict:
+    """13b's f32 run (TF32 off, dropout 0) of the fusion model from seed 0:
+    ``predict`` over ``PARITY_PREDICT`` samples in dataset order at 128 and
+    at 3 rows a forward on every rank (the rows no shard emits included), on
+    the weights both runs start from; then ``PARITY_STEPS`` steps over
+    ``SyntheticFusionDataset(seed=2)`` at a global ``batch``, and the
+    predictions at 128 again, on weights that now differ by the steps'
+    rounding."""
+    import torch
+
+    from applecider_tpu_torch.datasets.loader import DataLoader
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.fusion import AppleCiderTask
+    from applecider_tpu_torch.testing import SyntheticFusionDataset
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    model = build_fusion_model(cfg, device=device, dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(0))
+    _zero_dropout(model)
+    trainer = Trainer(AppleCiderTask(cfg, model), cfg, workdir, device=device)
+    shards = {"num_shards": trainer.mesh.shape["data"], "shard_index": trainer.data_index}
+    losses = _step_losses(trainer)
+    infer = SyntheticFusionDataset(PARITY_PREDICT, seed=3)
+    loaders = {b: DataLoader(infer, batch_size=b, shuffle=False, **shards)
+               for b in (PARITY_BATCH // 2, 3)}
+    with no_tf32():
+        preds = {b: trainer.predict(ld) for b, ld in loaders.items()}
+        trainer.fit(DataLoader(SyntheticFusionDataset(PARITY_BATCH * PARITY_STEPS, seed=2),
+                               batch_size=batch // shards["num_shards"], shuffle=False,
+                               drop_last=True, **shards), epochs=1)
+        trained = trainer.predict(loaders[PARITY_BATCH // 2])
+    return {"losses": [float(x) for x in losses], "preds": preds, "trained": trained,
+            "leftover": [ld.shard_emit_plan()["leftover"].size for ld in loaders.values()]}
+
+
+def _dropout_masks(model) -> tuple[list, list]:
+    """A hook on the first live dropout site: its zeroed elements among its
+    nonzero inputs, on the first call."""
+    from applecider_tpu_torch.ops.dropout import FastDropout
+
+    site = next(m for m in model.modules() if isinstance(m, FastDropout) and m.rate > 0)
+    masks = []
+
+    def hook(mod, inputs, out):
+        if not masks:
+            masks.append(((inputs[0] != 0).cpu().numpy(), (out == 0).cpu().numpy()))
+
+    return masks, [site.register_forward_hook(hook)]
+
+
+def ddp_gloo_rank(rank: int, world: int, tmp: Path, device: str, model_overrides,
+                  serve_alerts: int) -> dict:
+    """13b and 13c, a spawned rank of two on one card, over gloo: the
+    collectives on card tensors, the f32 parity run, two bf16 steps with
+    dropout live, then ``FusedSpectraStream(mesh=)`` beside the unsharded
+    stream."""
+    import torch
+    import torch.distributed as dist
+
+    from applecider_tpu_torch.datasets.loader import DataLoader
+    from applecider_tpu_torch.infer.stream import LENGTH_BUCKETS, FusedSpectraStream
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.fusion import AppleCiderTask
+    from applecider_tpu_torch.parallel.mesh import make_mesh
+    from applecider_tpu_torch.testing import SyntheticFusionDataset, make_alert_samples
+    from applecider_tpu_torch.train.runtime import AppleCiderRuntime
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    on_card = device != "cpu"
+    cfg = _ddp_config(tmp, world, rank, backend="gloo", model_overrides=model_overrides,
+                      compute_dtype="float32")
+    cfg.set("model.BaselineCLS.dropout", 0.0)
+    # the runtime starts the group and names the run directory (process 0's stamp)
+    rt = AppleCiderRuntime(overrides=cfg, workdir=tmp / "runs", device=device)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    # gloo with tensors on the card: each collective the path runs
+    x = torch.full((4,), float(rank + 1), device=device)
+    dist.all_reduce(x)
+    y = torch.full((2,), float(rank), device=device)
+    dist.broadcast(y, src=1)
+    parts = [torch.empty(3, device=device) for _ in range(world)]
+    dist.all_gather(parts, torch.full((3,), float(rank), device=device))
+    out["collectives"] = {"all_reduce": x.tolist(), "broadcast": y.tolist(),
+                          "all_gather": torch.cat(parts).tolist()}
+    saves = []
+    real_save = torch.save
+
+    def counted_save(*a, **k):
+        saves.append(str(a[1]))
+        return real_save(*a, **k)
+
+    torch.save = counted_save
+    try:
+        run_dir = rt._new_run_dir("train")
+        out["parity"] = _parity_fit(cfg, device, run_dir, PARITY_BATCH)
+    finally:
+        torch.save = real_save
+    out["run_dir"], out["saves"] = str(run_dir), saves
+
+    # bf16, dropout live: the launches of two steps, each rank's masks
+    cfg16 = _ddp_config(tmp, world, rank, backend="gloo", model_overrides=model_overrides)
+    model = build_fusion_model(cfg16, device=device, dtype=torch.bfloat16,
+                               generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(AppleCiderTask(cfg16, model), cfg16, tmp / f"bf16-{rank}", device=device)
+    masks, handles = _dropout_masks(model)
+    counters = zero_counters()
+    rec = trainer.fit(DataLoader(SyntheticFusionDataset(PARITY_BATCH * 2, seed=5),
+                                 batch_size=PARITY_BATCH // world, drop_last=True,
+                                 num_shards=world, shard_index=rank), epochs=1)["history"][0]
+    out["bf16"] = {"loss": rec["train_loss"], "steps": rec["steps"],
+                   "launches": _kernel_launches(counters), "seed": trainer.rng.cpu.initial_seed(),
+                   "mask_input": np.packbits(masks[0][0]), "mask": np.packbits(masks[0][1])}
+    for h in handles:
+        h.remove()
+    del trainer, model
+
+    # 13c: serving, f32, TF32 off
+    model32 = build_fusion_model(cfg, device=device, dtype=torch.float32,
+                                 generator=torch.Generator().manual_seed(0))
+    samples = make_alert_samples(2048, seed=1, spectrum_frac=0.3, length_range=(20, 257),
+                                 spectrum_points=(80, 2000))[:serve_alerts]
+    with no_tf32():
+        want = FusedSpectraStream(model32, device=device)(samples, length_buckets=LENGTH_BUCKETS)
+        stream = FusedSpectraStream(model32, device=device, mesh=make_mesh())
+        placed = stream.place(samples, length_buckets=LENGTH_BUCKETS)
+        counters = zero_counters()
+        got = stream.run_placed(placed)()
+        out["serve"] = {"launches": _kernel_launches(counters), "got": got, "want": want,
+                        "local_rows": int(placed["image"].shape[0])}
+    return out
+
+
+def _param_parity(two: dict, one: dict, lr: float, steps: int) -> tuple[float, float, bool]:
+    """(worst SpectraNet ||d(update)|| / ||update||, worst elementwise |dp|
+    elsewhere, ok): SpectraNet's parameters in norm (its max pools route a
+    few gradients to another argmax when a sum's order changes), every
+    other parameter within 1e-4 but the attention's key bias, whose
+    gradient is zero but for rounding and which Adam moves by up to ~lr a
+    step in a direction the rounding picks (within 3 * lr a step)."""
+    import torch
+
+    spectra, other, ok = 0.0, 0.0, True
+    for name, w in one["final"].items():
+        if not torch.is_floating_point(w):
+            continue
+        g = two["final"][name].double()
+        w = w.double()
+        if name.startswith("spectra_encoder."):
+            u = w - one["start"][name].double()
+            rel = float((g - w).norm()) / max(float(u.norm()), 1e-12)
+            spectra = max(spectra, rel)
+            ok = ok and rel <= 5e-2
+            continue
+        d = (g - w).abs()
+        if name.endswith("self_attn.in_proj.bias"):
+            e = d.numel() // 3
+            ok = ok and float(d[e:2 * e].max()) <= 3 * lr * steps
+            d[e:2 * e] = 0.0
+        other = max(other, float(d.max()))
+    return spectra, other, ok and other <= 1e-4
+
+
+def check_ddp(card: str, device="cuda", model_overrides: dict | None = None,
+              nccl_batch: int = DDP_BATCH, nccl_steps: int = DDP_STEPS,
+              serve_alerts: int = DDP_SERVE_ALERTS) -> dict:
+    """Phase 13: data-parallel training and serving on ``torch.distributed``
+    (``parallel/``), every rank a spawned process (``parallel.launch``):
+    13a one rank over NCCL, 13b and 13c two ranks on the one card over
+    gloo, against this process's one-process runs."""
+    import tempfile
+
+    import torch
+
+    from applecider_tpu_torch.config import load_defaults
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.parallel.launch import spawn
+
+    on_card = device != "cpu"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        tmp = Path(tmp)
+        for d in ("a", "b"):
+            (tmp / d).mkdir()
+        # 13a
+        (a,) = spawn(ddp_nccl_rank, 1, tmp / "a", device, model_overrides, nccl_batch,
+                     nccl_steps, timeout_s=300)
+        want = {n: per * nccl_steps for n, per in TRAINING_KERNELS.items()}
+        wrong = {n: (a["launches"][n], w) for n, w in want.items() if a["launches"][n] != w}
+        stray = [n for n, v in a["launches"].items() if n not in want and v]
+        step_ms = float(np.median(a["step_ms"][1:])) if on_card else float("nan")
+        red_ms = float(np.median(a["allreduce_ms"][1:])) if on_card else float("nan")
+        log(f"13a DDP, {a['world']} rank over {a['backend']}, bf16, full widths, batch "
+            f"{nccl_batch}, dropout live: {a['steps']} steps, loss {a['loss']:.5f}, "
+            f"{a['changed']} of {a['n_params']} parameter tensors changed; step ms "
+            f"{', '.join(f'{t:.1f}' for t in a['step_ms'])} (median after the first "
+            f"{step_ms:.2f}); gradient all-reduce ({a['grad_mb']:.1f} MiB f32) ms "
+            f"{', '.join(f'{t:.3f}' for t in a['allreduce_ms'])} (median after the first "
+            f"{red_ms:.3f}); peak {a['peak_gib']:.2f} GiB [{card}]")
+        log(f"  launches: { {n: v for n, v in a['launches'].items() if v} }")
+        if a["steps"] != nccl_steps or not np.isfinite(a["loss"]) or a["changed"] == 0 or (
+                on_card and (a["backend"] != "nccl" or wrong or stray)):
+            raise SystemExit(f"13a failed: steps {a['steps']}, loss {a['loss']}, changed "
+                             f"{a['changed']}, backend {a['backend']}, launches {wrong} {stray}")
+
+        # 13b, 13c: two ranks, then this process alone on the same data and weights
+        ranks = spawn(ddp_gloo_rank, 2, tmp / "b", device, model_overrides, serve_alerts,
+                      timeout_s=600)
+        cfg = load_defaults().merged_with({**(model_overrides or {}),
+                                           "train": {"compute_dtype": "float32"}})
+        cfg.set("model.BaselineCLS.dropout", 0.0)
+        one = _parity_fit(cfg, device, tmp / "one", PARITY_BATCH)
+        start = build_fusion_model(cfg, device="cpu", dtype=torch.float32,
+                                   generator=torch.Generator().manual_seed(0)).state_dict()
+
+        def final(run_dir):
+            return torch.load(Path(run_dir) / "checkpoints" / "last.pt", map_location="cpu",
+                              weights_only=True)["params"]
+
+        r0, r1 = ranks
+        log(f"13b two ranks on one card over {r0['backend']}: collectives on card tensors "
+            f"{r0['collectives']} (rank 0), {r1['collectives']} (rank 1)")
+        want_coll = {"all_reduce": [3.0] * 4, "broadcast": [1.0] * 2,
+                     "all_gather": [0.0] * 3 + [1.0] * 3}
+        ok = all(r["collectives"] == want_coll for r in ranks) and r0["backend"] == "gloo"
+        loss_err = max(abs(a_ - b_) / max(abs(b_), 1e-12) for r in ranks
+                       for a_, b_ in zip(r["parity"]["losses"], one["losses"], strict=True))
+        pred_err = max(float(np.abs(r["parity"]["preds"][b] - one["preds"][b]).max())
+                       for r in ranks for b in one["preds"])
+        trained_err = max(float(np.abs(r["parity"]["trained"] - one["trained"]).max())
+                          for r in ranks)
+        spectra, other, params_ok = _param_parity(
+            {"final": final(r0["run_dir"])},
+            {"final": final(tmp / "one"), "start": start},
+            float(cfg.get_path("model.AppleCider.lr")), PARITY_STEPS)
+        runs = sorted(p.name for p in (tmp / "b" / "runs").iterdir())
+        writers = [len(r["saves"]) for r in ranks]
+        log(f"  f32 (TF32 off), dropout 0, global batch {PARITY_BATCH} (128 a rank), "
+            f"{PARITY_STEPS} steps: losses {r0['parity']['losses']} vs one process "
+            f"{one['losses']}, max rel |d| {loss_err:.3g} (<= 1e-4); parameters: SpectraNet "
+            f"worst ||d update||/||update|| {spectra:.3g} (<= 5e-2), elsewhere max|d| "
+            f"{other:.3g} (<= 1e-4, the key bias <= 3*lr a step) [{card}]")
+        log(f"  predict {PARITY_PREDICT} rows in dataset order at batch 128 and 3 a rank "
+            f"(leftover rows {r0['parity']['leftover']}), the starting weights: max|d| vs one "
+            f"process {pred_err:.3g} (<= 1e-5); after the steps (weights apart by their "
+            f"rounding) {trained_err:.3g}; run directories {runs} ({r0['run_dir'] == r1['run_dir']} "
+            f"the same on both ranks); checkpoint writes per rank {writers} [{card}]")
+        ok = ok and loss_err <= 1e-4 and pred_err <= 1e-5 and params_ok \
+            and r0["run_dir"] == r1["run_dir"] and len(runs) == 1 \
+            and writers[0] > 0 and writers[1] == 0 and all(r["parity"]["leftover"][1] for r in ranks)
+        # bf16, dropout live
+        b16 = [r["bf16"] for r in ranks]
+        both = np.unpackbits(b16[0]["mask_input"]) & np.unpackbits(b16[1]["mask_input"])
+        differ = float(((np.unpackbits(b16[0]["mask"]) != np.unpackbits(b16[1]["mask"]))
+                        & both.astype(bool)).sum() / max(both.sum(), 1))
+        want16 = {n: per * 2 for n, per in TRAINING_KERNELS.items()}
+        log(f"  bf16, dropout live, 2 steps: losses {[r['loss'] for r in b16]}; K4 seed streams "
+            f"{[r['seed'] for r in b16]}; first dropout site's masks differ on {differ:.3f} of "
+            f"the elements both ranks feed (0.48 at rate 0.4 if independent); launches per rank "
+            f"{[{n: v for n, v in r['launches'].items() if v} for r in b16]} [{card}]")
+        ok = ok and all(np.isfinite(r["loss"]) and r["steps"] == 2 for r in b16) \
+            and differ > 0.3 and b16[0]["seed"] != b16[1]["seed"]
+        if on_card:
+            ok = ok and all(r["launches"][n] == w for r in b16 for n, w in want16.items())
+        # 13c
+        serve_err = max(float(np.abs(r["serve"]["got"] - r["serve"]["want"]).max())
+                        for r in ranks)
+        log(f"13c FusedSpectraStream(mesh=) on the two ranks, f32 (TF32 off), {serve_alerts} "
+            f"alerts, {r0['serve']['local_rows']} rows a rank: max|dprob| vs the unsharded "
+            f"stream {serve_err:.3g} (<= 1e-5); launches per rank "
+            f"{[{n: v for n, v in r['serve']['launches'].items() if v} for r in ranks]} [{card}]")
+        ok = ok and serve_err <= 1e-5 and r0["serve"]["got"].shape == (
+            serve_alerts, r0["serve"]["want"].shape[1]) and np.isfinite(r0["serve"]["got"]).all()
+        if on_card:
+            ok = ok and all(r["serve"]["launches"][n] > 0 for r in ranks for n in SERVING_KERNELS)
+        if not ok:
+            raise SystemExit("phase 13 (data parallel) failed")
+    launches = {n: a["launches"][n] + sum(r["bf16"]["launches"][n] + r["serve"]["launches"][n]
+                                          for r in ranks) for n in a["launches"]}
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches": launches, "step_ms": step_ms, "allreduce_ms": red_ms,
+            "peak_gib": a["peak_gib"], "loss_err": loss_err, "pred_err": pred_err,
+            "trained_pred_err": trained_err, "serve_err": serve_err}
+
+
 def main() -> int:
     import torch
 
@@ -4065,6 +4476,8 @@ def main() -> int:
         log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     zoo = check_zoo(card)
     records += zoo["records"]
+    torch.cuda.empty_cache()  # the ranks of phase 13 share the card with this process
+    ddp = check_ddp(card)
     for r in records:
         name = r.get("counter", r["name"])  # the zoo's rows time a kernel at SpectraViT's shape
         by_path = {"serving": serving["launches"][name],
@@ -4082,7 +4495,8 @@ def main() -> int:
                    "remat": remat["launches"][name],
                    "imported_serve": imported["serve_launches"][name],
                    "int8_serve": int8_served["launches"][name],
-                   "zoo": zoo["launches"].get(name, 0)}
+                   "zoo": zoo["launches"].get(name, 0),
+                   "ddp": ddp["launches"][name]}
         path = ("zoo" if "counter" in r else
                 "ladder" if name.startswith(LADDER_PREFIX) else
                 "training" if name in TRAINING_KERNELS else

@@ -30,6 +30,9 @@ MODULES = [
     "applecider_tpu_torch.ops.metrics",
     "applecider_tpu_torch.ops.int8",
     "applecider_tpu_torch.ops.quant",
+    "applecider_tpu_torch.parallel",
+    "applecider_tpu_torch.parallel.mesh",
+    "applecider_tpu_torch.parallel.multihost",
     "applecider_tpu_torch.models",
     "applecider_tpu_torch.models.layers",
     "applecider_tpu_torch.models.time2vec",

@@ -263,19 +263,26 @@ def test_warmup_without_a_trained_run_warns(prepared, tmp_path):
     assert out["build_seconds"] == 0.0 and out["total_seconds"] > 0
 
 
+RAISES = {
+    # no rendezvous is configured and no launcher set one: named, before any wait
+    "parallel/multihost/enable":
+        r"parallel\.multihost\.coordinator_address or MASTER_ADDR and MASTER_PORT",
+    # one process, as JAX's make_mesh with one device
+    "parallel/mesh_shape": r"mesh shape \(2, 4\) needs 8 devices, have 1",
+}
+
+
 @pytest.mark.parametrize("key,value,verb", [
     ("parallel/multihost/enable", True, "train"),
     ("parallel/mesh_shape", [2, 4], "train"),
 ])
-def test_unported_options_raise(prepared, tmp_path, key, value, verb):
-    rt = _runtime(prepared, tmp_path, **{key: value})
-    named = value if key == "model/name" else key.split("/")[-1]
-    with pytest.raises(NotImplementedError, match=named) as err:
-        if verb == "serve":
-            rt.serve(raw_path=prepared / "raw", params={})
-        else:
-            rt.train()
-    assert "ROADMAP.md" in str(err.value)
+def test_unported_options_raise(prepared, tmp_path, monkeypatch, key, value, verb):
+    """The parallel options are ported; each refuses a setting it cannot
+    serve in one process without a launcher."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=RAISES[key]):
+        getattr(_runtime(prepared, tmp_path, **{key: value}), verb)()
 
 
 class ZooBatches:
