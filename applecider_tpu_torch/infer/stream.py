@@ -265,6 +265,23 @@ class SpectrumGrid(nn.Module):
         return torch.where(grid > xl, yl + s_right * (grid - xl), out)
 
 
+def resample_spectrum(wl, flux, valid, grid, assume_sorted: bool = False) -> torch.Tensor:
+    """One spectrum (S,) or a block (R, S) linearly interpolated onto
+    ``grid`` (with boundary extrapolation), then MAD-normalised: the JAX
+    package's ``resample_spectrum`` by name, over ``SpectrumGrid.resample``
+    on ``wl``'s device. ``assume_sorted``: the valid entries already form an
+    ascending-wavelength prefix (``pack_alert_batch``'s layout); otherwise
+    they are sorted first."""
+    one = wl.dim() == 1
+    wl, flux, valid = (t[None] if one else t for t in (wl, flux, valid))
+    if not assume_sorted:
+        x = torch.where(valid, wl, 1e30)
+        order = torch.argsort(x, dim=1, stable=True)
+        wl, flux = x.gather(1, order), flux.gather(1, order)
+        valid = wl < 1e29
+    out = SpectrumGrid(grid, wl.device).resample(wl, flux, valid)
+    return out[0] if one else out
+
 # ------------------------------------------------------------- pipeline
 DEFAULT_GRID = np.linspace(4500.0, 7980.0, 3481, dtype=np.float32)
 

@@ -103,3 +103,8 @@ class ConvNeXt(nn.Module):
             for b in range(self.depths[s]):
                 x = getattr(self, f"stage{s}_block{b}")(x)
         return self.head_norm(x.mean(dim=(1, 2)))
+
+
+def convnext_tiny(dtype: torch.dtype | None = None) -> ConvNeXt:
+    """ConvNeXt-tiny: depths (3, 3, 9, 3), widths (96, 192, 384, 768)."""
+    return ConvNeXt(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), dtype=dtype)

@@ -116,7 +116,7 @@ def build_fusion_model(cfg: Config | None = None, device="cuda", dtype: torch.dt
         spectra = SpectraNetModule(
             channels=tuple(sc["channels"]), depths=tuple(sc["depths"]),
             kernel_sizes_per_stage=tuple(tuple(k) for k in sc["kernel_sizes_per_stage"]),
-            embedding=True, dtype=dt)
+            embedding=True, dtype=dt, conv_mode=str(sc.get("conv_mode", "auto")))
     moe_out = int(ac["moe_output_dims"])
     img_meta = AstroMiNNModule(
         num_experts=int(ac["num_mlp_experts"]), towers_hidden_dims=int(ac["towers_hidden_dims"]),

@@ -21,15 +21,19 @@ Counterpart of ``applecider_tpu/models/spectranet.py``:
   ``classification``;
 * ``SpectraNetTriPoolTask`` (registered as ``SpectraNetTriPool``).
 
-Activations are (B, L, C) at every module boundary, as in the JAX package;
-each conv bank runs channels-first inside the block.
+Activations are (B, L, C) at every module boundary, as in the JAX package.
+Each conv of a bank takes the route ``conv_mode`` selects (``model.
+SpectraNet.conv_mode``, ``model.SpectraNetTriPool.conv_mode``; "auto" by
+default: ``ops.conv1d``'s cost model for the tensor's device); the 1x1
+downsample and TriPool's 1x1 residual are always direct.
 
 Dtypes follow the JAX package's promotion exactly: a conv runs in its
 input's dtype and adds its f32 bias after, which lifts a bf16 product to
 f32, so the LN+GELU epilogue (and TriPool's norm, residual and GELU) always
 sees f32; the block then casts to the compute dtype, the 1x1 downsample
 adds its f32 bias again, and in bf16 mode every SpectraNet stage after the
-first convolves in f32. TriPool's pools run in the compute dtype. The
+first convolves in f32. A conv on the FFT route returns f32 whatever its
+input's dtype, as JAX's does. TriPool's pools run in the compute dtype. The
 heads run in f32.
 
 TriPool's norm and GELU are not K3: a residual is added between them, so
@@ -60,7 +64,10 @@ from applecider_tpu_torch.models.base import Task, adamw, maybe_softmax
 from applecider_tpu_torch.models.layers import (
     LayerNorm, LayerNormGelu, Linear, gelu_exact, init_weights, uniform_,
 )
-from applecider_tpu_torch.ops.conv1d import avg_pool1d, conv1d_ncl, max_pool1d, min_pool1d
+from applecider_tpu_torch.ops.conv1d import (
+    avg_pool1d, bank_fft_len, check_mode, conv1d, max_pool1d, min_pool1d, platform_of,
+    takes_fft_path,
+)
 from applecider_tpu_torch.ops.dropout import FastDropout
 from applecider_tpu_torch.ops.losses import focal_loss
 from applecider_tpu_torch.ops.quant import quant_conv
@@ -96,27 +103,41 @@ class Conv1d(nn.Module):
 
 def _bank(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """The block's conv bank on x (B, L, Cin), outputs concatenated on
-    channels: (B, L, n_convs * Cout). A conv with an int8 scale
-    (``ops.quant``) takes the direct int8 convolution, 'same' odd K,
-    stride 1, in x's dtype."""
-    xc = x.transpose(1, 2)
+    channels: (B, L, n_convs * Cout). Each conv takes the route of
+    ``block.conv_mode`` (``ops.conv1d.conv1d``) as the JAX bank does: the
+    convs that take the FFT route share one FFT length, and x's rfft is
+    computed once for them. A conv with an int8 scale (``ops.quant``) takes
+    the direct int8 convolution, 'same' odd K, stride 1, in x's dtype,
+    whatever the mode."""
+    B, L, cin = x.shape
+    mode, platform = block.conv_mode, platform_of(x.device)
+    convs = [getattr(block, f"conv_{i}") for i in range(block.n_convs)]
+    cout, ks = convs[0].weight.shape[0], [c.weight.shape[-1] for c in convs]
+    n = bank_fft_len(B, L, cin, cout, ks, mode, platform)
+    spectra: dict = {}  # x's rfft at the bank's FFT length, computed once
     outs = []
-    for i in range(block.n_convs):
-        c = getattr(block, f"conv_{i}")
-        y = quant_conv(x, c, x.dtype, padding=c.weight.shape[-1] // 2)
-        outs.append(conv1d_ncl(xc, c.weight, c.bias).transpose(1, 2) if y is None else y)
+    for c, k in zip(convs, ks):
+        y = quant_conv(x, c, x.dtype, padding=k // 2)
+        if y is None:
+            fft = takes_fft_path(B, L, k, cin, cout, mode, platform)
+            y = conv1d(x, c.weight, c.bias, mode=mode, fft_len=n if fft else None,
+                       spectra=spectra)
+        outs.append(y)
     return torch.cat(outs, dim=-1)
 
 
 class SpectraBlock(nn.Module):
-    """Multi-kernel conv bank -> LN+GELU (K3) -> cast (-> 1x1 conv + max pool 4)."""
+    """Multi-kernel conv bank (routed by ``conv_mode``) -> LN+GELU (K3) ->
+    cast (-> 1x1 conv, always direct, + max pool 4)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_sizes: Sequence[int],
-                 do_pool: bool = False, dtype: torch.dtype | None = None):
+                 do_pool: bool = False, dtype: torch.dtype | None = None,
+                 conv_mode: str = "auto"):
         super().__init__()
         self.n_convs = len(kernel_sizes)
         self.do_pool = do_pool
         self.dtype = dtype
+        self.conv_mode = check_mode(conv_mode)
         for i, k in enumerate(kernel_sizes):
             self.add_module(f"conv_{i}", Conv1d(in_channels, out_channels, k))
         self.norm = LayerNormGelu(out_channels * len(kernel_sizes))
@@ -143,7 +164,8 @@ class SpectraNetModule(nn.Module):
                  kernel_sizes_per_stage: Sequence[Sequence[int]] = DEFAULT_BANKS,
                  num_classes: int = 9, head_hidden: int = 384, head_dropout: float = 0.5,
                  redshift: bool = False, redshift_softplus: bool = False,
-                 embedding: bool = False, dtype: torch.dtype | None = None):
+                 embedding: bool = False, dtype: torch.dtype | None = None,
+                 conv_mode: str = "auto"):
         super().__init__()
         self.dtype = dtype
         self.embedding = embedding
@@ -157,7 +179,8 @@ class SpectraNetModule(nn.Module):
                 name = f"stage{s}_block{d}"
                 block = SpectraBlock(
                     cin, int(channels[s]), tuple(kernel_sizes_per_stage[s]),
-                    do_pool=(s != n_stages - 1) and d == int(depths[s]) - 1, dtype=dtype)
+                    do_pool=(s != n_stages - 1) and d == int(depths[s]) - 1, dtype=dtype,
+                    conv_mode=conv_mode)
                 self.add_module(name, block)
                 self.block_names.append(name)
                 cin = block.out_channels
@@ -222,7 +245,7 @@ class SpectraNetTask(Task):
             head_hidden=int(mc.get("head_hidden", 384)),
             head_dropout=float(mc.get("head_dropout", 0.5)), redshift=self.redshift,
             redshift_softplus=bool(mc.get("redshift_softplus", False)),
-            dtype=self.compute_dtype())
+            dtype=self.compute_dtype(), conv_mode=str(mc.get("conv_mode", "auto")))
         self.module = init_weights(module, generator).to(resolve_device(device))
 
     def loss(self, batch, train: bool = True, kernels: bool = True):
@@ -289,12 +312,14 @@ class SpectraBlockTriPool(nn.Module):
     GELU -> cast (-> tri-pool: max, avg, min of 4 on channels, x3)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_sizes: Sequence[int],
-                 use_ln: bool = True, do_pool: bool = False, dtype: torch.dtype | None = None):
+                 use_ln: bool = True, do_pool: bool = False, dtype: torch.dtype | None = None,
+                 conv_mode: str = "auto"):
         super().__init__()
         k = len(kernel_sizes)
         self.n_convs = k
         self.do_pool = do_pool
         self.dtype = dtype
+        self.conv_mode = check_mode(conv_mode)
         self.proj = Conv1d(in_channels, out_channels * k, 1)
         for i, ks in enumerate(kernel_sizes):
             self.add_module(f"conv_{i}", Conv1d(in_channels, out_channels, ks))
@@ -320,7 +345,8 @@ class SpectraNetTriPoolModule(nn.Module):
                  kernel_sizes_per_stage: Sequence[Sequence[int]] = DEFAULT_BANKS,
                  use_ln_stages: Sequence[bool] = (False, False, False, False, True),
                  num_classes: int = 9, classification: bool = True,
-                 length: int = SPECTRUM_BINS, dtype: torch.dtype | None = None):
+                 length: int = SPECTRUM_BINS, dtype: torch.dtype | None = None,
+                 conv_mode: str = "auto"):
         super().__init__()
         self.dtype = dtype
         self.block_names = []
@@ -332,7 +358,8 @@ class SpectraNetTriPoolModule(nn.Module):
                 block = SpectraBlockTriPool(
                     cin, int(channels[s]), tuple(kernel_sizes_per_stage[s]),
                     use_ln=bool(use_ln_stages[s]),
-                    do_pool=(s != n_stages - 1) and d == int(depths[s]) - 1, dtype=dtype)
+                    do_pool=(s != n_stages - 1) and d == int(depths[s]) - 1, dtype=dtype,
+                    conv_mode=conv_mode)
                 self.add_module(name, block)
                 self.block_names.append(name)
                 cin = block.out_channels
@@ -364,8 +391,8 @@ class SpectraNetTriPoolModule(nn.Module):
 def build_tripool(cfg: Config, classification: bool, length: int,
                   dtype: torch.dtype | None) -> SpectraNetTriPoolModule:
     """The TriPool module of ``model.SpectraNetTriPool`` (absent keys take
-    the JAX package's defaults: widths 16..256, the published banks and
-    LayerNorm in every stage)."""
+    the JAX package's defaults: widths 16..256, the published banks,
+    LayerNorm in every stage and ``conv_mode`` "auto")."""
     tc = dict(cfg["model"].get("SpectraNetTriPool", {}))
     channels = tuple(tc.get("channels", TRIPOOL_CHANNELS))
     n_stages = len(channels)
@@ -375,7 +402,7 @@ def build_tripool(cfg: Config, classification: bool, length: int,
                                                                DEFAULT_BANKS)),
         use_ln_stages=tuple(tc.get("use_ln_stages", (True,) * n_stages)),
         num_classes=int(tc.get("num_classes", 9)), classification=classification,
-        length=length, dtype=dtype)
+        length=length, dtype=dtype, conv_mode=str(tc.get("conv_mode", "auto")))
 
 
 @register_model(name="SpectraNetTriPool")

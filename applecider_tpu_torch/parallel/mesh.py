@@ -90,19 +90,43 @@ def make_mesh(shape=(-1, 1), axes=("data", "model")) -> Mesh:
     live = dist.is_available() and dist.is_initialized()
     groups = {}
     if live:
-        grid = np.arange(needed).reshape(shape)
-        for a, axis in enumerate(axes):
-            if shape[a] == n:
-                groups[axis] = None  # the whole world: the default group
-                continue
-            if shape[a] == 1:
-                continue  # one rank: nothing to reduce
-            # every rank creates every group, in the same order
-            for line in np.moveaxis(grid, a, -1).reshape(-1, shape[a]):
-                g = dist.new_group([int(r) for r in line])
-                if process_index() in line:
-                    groups[axis] = g
-    return Mesh(shape, axes, rank=process_index(), groups=groups, distributed=live)
+        groups = _axis_groups(n, tuple(shape), tuple(axes))
+    return Mesh(shape, axes, rank=process_index(), groups=dict(groups), distributed=live)
+
+
+# (world size, shape, axes) -> (the default group they were made under, the
+# axis groups of this rank): a mesh's groups are made once for the life of the
+# process group, as a JAX ``Mesh`` costs nothing to build again
+_GROUPS: dict = {}
+
+
+def _axis_groups(n: int, shape: tuple, axes: tuple) -> dict:
+    """This rank's process group along each axis of ``shape`` (None: the
+    whole world, the default group; absent: one rank), made by every rank in
+    the same order at the first call and reused while the default group
+    lives."""
+    from applecider_tpu_torch.parallel.multihost import process_index
+
+    world = dist.group.WORLD
+    key = (n, shape, axes)
+    cached = _GROUPS.get(key)
+    if cached is not None and cached[0] is world:
+        return cached[1]
+    groups = {}
+    grid = np.arange(math.prod(shape)).reshape(shape)
+    for a, axis in enumerate(axes):
+        if shape[a] == n:
+            groups[axis] = None  # the whole world: the default group
+            continue
+        if shape[a] == 1:
+            continue  # one rank: nothing to reduce
+        # every rank creates every group, in the same order
+        for line in np.moveaxis(grid, a, -1).reshape(-1, shape[a]):
+            g = dist.new_group([int(r) for r in line])
+            if process_index() in line:
+                groups[axis] = g
+    _GROUPS[key] = (world, groups)
+    return groups
 
 
 def batch_sharding(mesh: Mesh, ndim: int, axis: str = "data") -> tuple:

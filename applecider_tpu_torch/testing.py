@@ -106,6 +106,10 @@ class SyntheticFusionDataset:
 # ------------------------------------------------------- raw corpus
 CLASS_NAMES = ("SN Ia", "SN II", "Cataclysmic", "AGN", "Tidal Disruption Event")
 
+# a BTS-like class balance (supernovae dominate spectroscopic streams), as
+# the JAX package's ``testing.BTS_CLASS_WEIGHTS``
+BTS_CLASS_WEIGHTS = (0.55, 0.20, 0.12, 0.09, 0.04)
+
 
 # ---------------------------------------------------- class-conditioned signal
 def _class_mag_curve(cls_idx: int, t_rel: np.ndarray,
@@ -271,6 +275,7 @@ def make_corpus(
     seed: int = 0,
     classes=CLASS_NAMES,
     learnable: bool = False,
+    class_weights=None,
     n_photometry: int | tuple[int, int] = 30,
     spectrum_frac: float | None = None,
     **object_kwargs,
@@ -278,7 +283,9 @@ def make_corpus(
     """Create a synthetic raw corpus; returns (data_dir, labels_csv).
 
     ``learnable=True`` conditions every modality on the object's class
-    (see ``make_object_dir``); labels go round-robin over ``classes``.
+    (see ``make_object_dir``). Labels go round-robin over ``classes``, or
+    with ``class_weights`` (e.g. ``BTS_CLASS_WEIGHTS``) are drawn from that
+    distribution, the first ``len(classes)`` objects one of each class.
 
     Beyond the JAX package's ``make_corpus`` (which it equals, file for
     file, when neither is given): ``n_photometry`` may be an inclusive
@@ -290,7 +297,12 @@ def make_corpus(
     root = Path(root)
     data_dir = root / "raw"
     data_dir.mkdir(parents=True, exist_ok=True)
-    cls_ids = np.arange(n_objects) % len(classes)
+    if class_weights is not None:
+        w = np.asarray(class_weights, np.float64)
+        cls_ids = rng.choice(len(classes), size=n_objects, p=w / w.sum())
+        cls_ids[: len(classes)] = np.arange(len(classes))  # at least one of each class
+    else:
+        cls_ids = np.arange(n_objects) % len(classes)
     rows = ["object_id,type"]
     for i in range(n_objects):
         obj_id = f"ZTFSYN{i:04d}"

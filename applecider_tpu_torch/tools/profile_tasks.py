@@ -18,7 +18,9 @@ module defaults), in bf16 only, at ``ZOO_BATCHES`` (the batches of
    the optimizer: AdamW, or the zoo's Adam), the median of 5;
 2. three steps under ``torch.profiler``: device busy time summed over
    kernels and copies (the idle share is the rest of the wall time) and
-   the kernels that took the most device time.
+   the kernels that took the most device time;
+3. for SpectraNet and TriPool, the route of each bank conv
+   (``ops.conv1d.route``: direct, FFT or space-to-depth).
 
 Needs a GPU; prints the card's name and power limit first and the whole
 report as one JSON line last.
@@ -38,6 +40,7 @@ from applecider_tpu_torch.device import card_name_and_power
 from applecider_tpu_torch.models.astrominn import AstroMiNNTask
 from applecider_tpu_torch.models.spectranet import SpectraNetTask, SpectraNetTriPoolTask
 from applecider_tpu_torch.registry import get_model
+from applecider_tpu_torch.tools.conv_routes import module_routes
 from applecider_tpu_torch.tools.profile_training import profile_steps, step_phases
 from applecider_tpu_torch.train.trainer import Trainer
 
@@ -81,18 +84,21 @@ def zoo_host_batches(task_cls, shape: tuple, batch: int, n: int, seed: int) -> l
 VARIANTS = (("bfloat16", False), ("float32", False), ("bfloat16", True))
 
 
-def profile_task(name: str, cls, config: str, dtype: str) -> dict:
+def profile_task(name: str, cls, config: str, dtype: str, top: int = 8,
+                 overrides: dict | None = None) -> dict:
     """``config`` names a run config of ``configs/``, or is "zoo": the
-    defaults and ``ZOO_BATCHES``' batch, the model sized by it."""
+    defaults and ``ZOO_BATCHES``' batch, the model sized by it; ``overrides``
+    go on top. Keeps the ``top`` kernels; a spectra task's result names the
+    route of each bank conv (``routes``)."""
     if config == "zoo":
-        cfg = load_defaults().merged_with({"train": {"compute_dtype": dtype}})
+        cfg = load_defaults().merged_with({"train": {"compute_dtype": dtype}, **(overrides or {})})
         task = cls(cfg, generator=torch.Generator().manual_seed(0))
         shape, batch = ZOO_BATCHES[name]
         hosts = zoo_host_batches(cls, shape, batch, 3, seed=0)
         task.init(hosts[0])
     else:
         cfg = load_config(REPO / "configs" / f"{config}.toml",
-                          {"train": {"compute_dtype": dtype}})
+                          {"train": {"compute_dtype": dtype}, **(overrides or {})})
         task = cls(cfg, generator=torch.Generator().manual_seed(0))
         hosts = host_batches(config, int(cfg.get_path("data_loader.batch_size")))
     trainer = Trainer(task, cfg, WORKDIR / f"{name}_{dtype}")
@@ -102,8 +108,11 @@ def profile_task(name: str, cls, config: str, dtype: str) -> dict:
     phases = [step_phases(trainer, batches[i % len(batches)]) for i in range(5)]
     phases = {k: float(np.median([p[k] for p in phases])) for k in phases[0]}
     prof = profile_steps(trainer, batches)
-    prof["top"] = prof["top"][:8]
-    return {"batch": len(batches[0][0]), "phases": phases, "profile": prof}
+    prof["top"] = prof["top"][:top]
+    out = {"batch": len(batches[0][0]), "phases": phases, "profile": prof}
+    if config == "spectra":
+        out["routes"] = module_routes(task.module, out["batch"], batches[0][0].shape[-1])
+    return out
 
 
 def main() -> None:
@@ -126,6 +135,8 @@ def main() -> None:
               f"{p['clip_adam_ms']:.3f}); {prof['steps']} steps under the profiler: wall "
               f"{prof['wall_ms']:.2f} ms, device busy {prof['device_busy_ms']:.2f} ms, idle "
               f"share {prof['idle_share']}", flush=True)
+        for route in r.get("routes", []):
+            print(f"  route: {route}", flush=True)
         for row in prof["top"]:
             print(f"  {row['ms']:9.3f} ms {row['calls']:6d}x {row['kernel']}", flush=True)
         torch.cuda.empty_cache()

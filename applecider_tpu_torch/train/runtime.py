@@ -64,6 +64,7 @@ from applecider_tpu_torch.device import resolve_device
 from applecider_tpu_torch.models.base import Task
 from applecider_tpu_torch.models.fusion import AppleCiderTask
 from applecider_tpu_torch.ops import attention, ln_gelu, merge_scan  # noqa: F401  (the custom ops)
+from applecider_tpu_torch.ops.conv1d import route_batch
 from applecider_tpu_torch.registry import get_dataset_class, get_model
 from applecider_tpu_torch.parallel.mesh import make_mesh
 from applecider_tpu_torch.parallel.multihost import (
@@ -376,8 +377,10 @@ class AppleCiderRuntime:
         concrete_b = int(self.config.get_path("serve.batch_size", default=1024))
         for P in length_buckets:
             t0 = time.perf_counter()
-            exported, bmeta = _export_with_symbolic_batch(
-                _ServingFunction(program), lambda b, P=P: args(P, b), 4, concrete_b, n_static=1)
+            with route_batch(concrete_b):  # the convolutions' routes at the served batch
+                exported, bmeta = _export_with_symbolic_batch(
+                    _ServingFunction(program), lambda b, P=P: args(P, b), 4, concrete_b,
+                    n_static=1)
             exported.example_inputs = None  # they hold the weights too
             torch.export.save(exported, out_path / f"serving_P{P}.pt2")
             bmeta["seconds"] = time.perf_counter() - t0

@@ -214,13 +214,27 @@ Phases, in order; any failure exits non-zero before the result line:
    losses within 1e-4 relative, SpectraNet's parameter updates in norm
    (5e-2) and every other parameter within 1e-4 (the attention's key bias
    within 3 * lr a step), one run directory (``AppleCiderRuntime``) and one
-   checkpoint writer;
+   checkpoint writer; the same three steps with SpectraNet frozen
+   (``train.freeze_params``), whose predictions on the trained weights meet
+   one process's within 1e-5 (with SpectraNet trained they are only logged:
+   its max pools route a few gradients to another argmax when a sum's order
+   changes);
    then two bf16 steps with dropout live: finite losses, each rank's
    launches, the ranks' dropout masks different; (c) ``FusedSpectraStream
    (mesh=)`` on the two ranks, f32, the first 512 alerts of phase 3's
    workload, within 1e-5 of the unsharded stream, K1, K2 and K3f launched
    on each rank;
-14. one JSON line describing each kernel (the zoo's three rows with
+14. SpectraNet's convolution routes (``tools/conv_routes.py``): FFT and
+   space-to-depth against direct at every bank shape of SpectraNet and
+   TriPool in f32 (TF32 off, ``tests/test_spectranet.py``'s FFT
+   tolerances); each route timed at serving (B = 512) and training (B =
+   256; TriPool B = 32, bf16), forward and forward + backward, beside
+   ``auto``'s route and the FFT penalty the table picks; TriPool's bf16
+   training step (B = 32) under ``conv_mode = "direct"`` with the port's
+   f32 input gradient beside cuDNN's bf16 ``dgrad_engine``, under "auto",
+   and the f32 step: the direct bf16 step must spend under half its device
+   time in ``dgrad_engine`` and beat cuDNN's;
+15. one JSON line describing each kernel (the zoo's three rows with
    ``counter`` naming the launch counter of the kernel they time; every
    record's ``launches_by_path`` with ``ddp``, phase 13's counted runs
    summed over ranks), then the result line.
@@ -246,6 +260,7 @@ import numpy as np
 from applecider_tpu_torch.tools.int8_timing import (DWCONV_KERNEL, DWCONV_PAD, INT8_CONV_TIMED,
                                                     INT8_CONVS, INT8_DWCONVS, INT8_GEMM_TIMED,
                                                     INT8_GEMMS, Int8Library, conv_geometry)
+from applecider_tpu_torch.tools.conv_routes import DGRAD_BF16
 from applecider_tpu_torch.tools.kernel_timing import time_ms
 from applecider_tpu_torch.tools.profile_tasks import ZOO_BATCHES, zoo_host_batches
 
@@ -4044,6 +4059,7 @@ def check_zoo(card: str, device="cuda", model_overrides: dict | None = None,
 DDP_TIMEOUT_S = 120  # the rendezvous and every collective of phase 13
 DDP_STEPS, DDP_BATCH = 6, 256  # 13a
 PARITY_STEPS, PARITY_BATCH, PARITY_PREDICT = 3, 256, 259  # 13b, global batch
+FROZEN_SPECTRA = {"train": {"freeze_params": ["spectra_encoder"]}}  # 13b's frozen variant
 DDP_SERVE_ALERTS = 512  # 13c: the first of phase 3's alerts
 
 
@@ -4145,13 +4161,13 @@ def _zero_dropout(model) -> None:
             m.rate = 0.0
 
 
-def _parity_fit(cfg, device: str, workdir: Path, batch: int) -> dict:
+def _parity_fit(cfg, device: str, workdir: Path, batch: int, start: bool = True) -> dict:
     """13b's f32 run (TF32 off, dropout 0) of the fusion model from seed 0:
     ``predict`` over ``PARITY_PREDICT`` samples in dataset order at 128 and
     at 3 rows a forward on every rank (the rows no shard emits included), on
-    the weights both runs start from; then ``PARITY_STEPS`` steps over
-    ``SyntheticFusionDataset(seed=2)`` at a global ``batch``, and the
-    predictions at 128 again, on weights that now differ by the steps'
+    the weights both runs start from (``start``); then ``PARITY_STEPS``
+    steps over ``SyntheticFusionDataset(seed=2)`` at a global ``batch``, and
+    the predictions at 128 again, on weights that now differ by the steps'
     rounding."""
     import torch
 
@@ -4171,7 +4187,7 @@ def _parity_fit(cfg, device: str, workdir: Path, batch: int) -> dict:
     loaders = {b: DataLoader(infer, batch_size=b, shuffle=False, **shards)
                for b in (PARITY_BATCH // 2, 3)}
     with no_tf32():
-        preds = {b: trainer.predict(ld) for b, ld in loaders.items()}
+        preds = {b: trainer.predict(ld) for b, ld in loaders.items()} if start else {}
         trainer.fit(DataLoader(SyntheticFusionDataset(PARITY_BATCH * PARITY_STEPS, seed=2),
                                batch_size=batch // shards["num_shards"], shuffle=False,
                                drop_last=True, **shards), epochs=1)
@@ -4243,6 +4259,9 @@ def ddp_gloo_rank(rank: int, world: int, tmp: Path, device: str, model_overrides
     finally:
         torch.save = real_save
     out["run_dir"], out["saves"] = str(run_dir), saves
+    # the same with SpectraNet frozen: no gradient passes its max pools
+    out["frozen"] = _parity_fit(cfg.merged_with(FROZEN_SPECTRA), device, tmp / "frozen",
+                                PARITY_BATCH, start=False)["trained"]
 
     # bf16, dropout live: the launches of two steps, each rank's masks
     cfg16 = _ddp_config(tmp, world, rank, backend="gloo", model_overrides=model_overrides)
@@ -4356,6 +4375,8 @@ def check_ddp(card: str, device="cuda", model_overrides: dict | None = None,
                                            "train": {"compute_dtype": "float32"}})
         cfg.set("model.BaselineCLS.dropout", 0.0)
         one = _parity_fit(cfg, device, tmp / "one", PARITY_BATCH)
+        one_frozen = _parity_fit(cfg.merged_with(FROZEN_SPECTRA), device, tmp / "one_frozen",
+                                 PARITY_BATCH, start=False)["trained"]
         start = build_fusion_model(cfg, device="cpu", dtype=torch.float32,
                                    generator=torch.Generator().manual_seed(0)).state_dict()
 
@@ -4375,6 +4396,7 @@ def check_ddp(card: str, device="cuda", model_overrides: dict | None = None,
                        for r in ranks for b in one["preds"])
         trained_err = max(float(np.abs(r["parity"]["trained"] - one["trained"]).max())
                           for r in ranks)
+        frozen_err = max(float(np.abs(r["frozen"] - one_frozen).max()) for r in ranks)
         spectra, other, params_ok = _param_parity(
             {"final": final(r0["run_dir"])},
             {"final": final(tmp / "one"), "start": start},
@@ -4389,9 +4411,10 @@ def check_ddp(card: str, device="cuda", model_overrides: dict | None = None,
         log(f"  predict {PARITY_PREDICT} rows in dataset order at batch 128 and 3 a rank "
             f"(leftover rows {r0['parity']['leftover']}), the starting weights: max|d| vs one "
             f"process {pred_err:.3g} (<= 1e-5); after the steps (weights apart by their "
-            f"rounding) {trained_err:.3g}; run directories {runs} ({r0['run_dir'] == r1['run_dir']} "
+            f"rounding, SpectraNet's gradients through its max pools) {trained_err:.3g}, "
+            f"with SpectraNet frozen {frozen_err:.3g} (<= 1e-5); run directories {runs} ({r0['run_dir'] == r1['run_dir']} "
             f"the same on both ranks); checkpoint writes per rank {writers} [{card}]")
-        ok = ok and loss_err <= 1e-4 and pred_err <= 1e-5 and params_ok \
+        ok = ok and loss_err <= 1e-4 and pred_err <= 1e-5 and frozen_err <= 1e-5 and params_ok \
             and r0["run_dir"] == r1["run_dir"] and len(runs) == 1 \
             and writers[0] > 0 and writers[1] == 0 and all(r["parity"]["leftover"][1] for r in ranks)
         # bf16, dropout live
@@ -4426,7 +4449,29 @@ def check_ddp(card: str, device="cuda", model_overrides: dict | None = None,
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s [{card}]")
     return {"launches": launches, "step_ms": step_ms, "allreduce_ms": red_ms,
             "peak_gib": a["peak_gib"], "loss_err": loss_err, "pred_err": pred_err,
-            "trained_pred_err": trained_err, "serve_err": serve_err}
+            "trained_pred_err": trained_err, "frozen_trained_pred_err": frozen_err,
+            "serve_err": serve_err}
+
+
+# ------------------------------------------------------------- phase 14
+def check_conv_routes(card: str) -> dict:
+    """Phase 14: the convolution routes and TriPool's bf16 step."""
+    from applecider_tpu_torch.tools.conv_routes import run
+
+    report = run(card, log=log)
+    bad = [c for c in report["checks"] if not c["ok"]]
+    steps = report["tripool"]
+    new, old = steps["direct_bf16"], steps["direct_bf16_cudnn_dgrad"]
+    log(f"phase 14: TriPool bf16 step, conv_mode direct: {new['phases']['step_ms']:.3f} ms "
+        f"({new['dgrad_bf16_share']:.3f} of its device time in {DGRAD_BF16}...>) against "
+        f"{old['phases']['step_ms']:.3f} ms with cuDNN's bf16 input gradient "
+        f"({old['dgrad_bf16_share']:.3f}); auto {steps['auto_bf16']['phases']['step_ms']:.3f} ms; "
+        f"f32 {steps['direct_f32']['phases']['step_ms']:.3f} ms [{card}]")
+    if bad or not new["dgrad_bf16_share"] < 0.5 or \
+            not new["phases"]["step_ms"] < old["phases"]["step_ms"]:
+        raise SystemExit(f"phase 14 (conv routes) failed: {len(bad)} route checks out of "
+                         f"tolerance {bad}, or TriPool's bf16 step still in {DGRAD_BF16}")
+    return report
 
 
 def main() -> int:
@@ -4478,6 +4523,8 @@ def main() -> int:
     records += zoo["records"]
     torch.cuda.empty_cache()  # the ranks of phase 13 share the card with this process
     ddp = check_ddp(card)
+    torch.cuda.empty_cache()
+    check_conv_routes(card)
     for r in records:
         name = r.get("counter", r["name"])  # the zoo's rows time a kernel at SpectraViT's shape
         by_path = {"serving": serving["launches"][name],

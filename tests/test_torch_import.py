@@ -91,6 +91,9 @@ MODULES = [
     "applecider_tpu_torch.tools.kernel_timing",
     "applecider_tpu_torch.tools.host_overhead",
     "applecider_tpu_torch.tools.profile_tasks",
+    "applecider_tpu_torch.tools.conv_routes",
+    "applecider_tpu_torch.tools.learning_demo",
+    "applecider_tpu_torch._lazy",
 ]
 
 
@@ -123,6 +126,89 @@ def test_port_imports_with_jax_blocked():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+# the JAX package's package-level and module-level public names, at the same
+# paths in the port
+PUBLIC_NAMES = {
+    "": ["Config", "load_config", "get_model", "get_dataset_class", "register_model",
+         "register_dataset"],
+    ".preprocessing": ["PreprocessConfig", "build_all_preprocessed", "build_multimodal_for_object",
+                       "make_splits_from_manifest", "compute_feature_stats", "find_available_ids",
+                       "write_manifest_csv", "Config", "compute_feature_stats_safe"],
+    ".train": ["Trainer", "AppleCiderRuntime"],
+    ".ops": ["class_balanced_weights", "cross_entropy", "dice_loss", "focal_loss",
+             "multiclass_bce_loss", "topk_dense_dispatch"],
+    ".utils": ["seed_everything", "key_iter"],
+    ".models.convnext": ["convnext_tiny"],
+    ".infer.stream": ["resample_spectrum"],
+}
+
+
+def test_public_names_import_from_the_jax_paths_with_jax_blocked():
+    """``from <port path> import <name>`` for every public name the JAX
+    package exports at that path, in a fresh interpreter with the JAX
+    package blocked; importing a package alone pulls in none of its
+    submodules' heavy imports (the names resolve at first use)."""
+    code = textwrap.dedent(f"""
+        import importlib, importlib.abc, sys
+
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "applecider_tpu", "pandas", "sklearn")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked import of {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import applecider_tpu_torch.train, applecider_tpu_torch.preprocessing
+        assert "applecider_tpu_torch.train.trainer" not in sys.modules
+        assert "torch.distributed.nn" not in sys.modules
+        for path, names in {PUBLIC_NAMES!r}.items():
+            module = importlib.import_module("applecider_tpu_torch" + path)
+            for name in names:
+                exec(f"from applecider_tpu_torch{{path}} import {{name}}")
+                assert name in dir(module), (path, name)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_public_names_are_the_port_objects():
+    """The aliases and the thin names: ``Config`` of preprocessing is
+    ``PreprocessConfig``; ``convnext_tiny`` is ConvNeXt-tiny; and
+    ``resample_spectrum`` equals JAX's on unsorted spectra (one and a block)."""
+    import jax.numpy as jnp
+
+    from applecider_tpu.infer.stream import resample_spectrum as jax_resample
+    from applecider_tpu_torch import preprocessing, train
+    from applecider_tpu_torch.infer.stream import resample_spectrum
+    from applecider_tpu_torch.models.convnext import ConvNeXt, convnext_tiny
+    from applecider_tpu_torch.preprocessing.config import PreprocessConfig
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    assert preprocessing.Config is preprocessing.PreprocessConfig is PreprocessConfig
+    assert preprocessing.compute_feature_stats_safe is preprocessing.compute_feature_stats
+    assert train.Trainer is Trainer
+    m = convnext_tiny()
+    assert isinstance(m, ConvNeXt) and m.depths == (3, 3, 9, 3)
+    assert m.head_norm.weight.shape == (768,)
+    rng = np.random.default_rng(0)
+    grid = np.linspace(4500.0, 7980.0, 64, dtype=np.float32)
+    wl = rng.uniform(4000, 8500, size=(3, 40)).astype(np.float32)  # unsorted
+    flux = rng.normal(size=(3, 40)).astype(np.float32)
+    valid = rng.random((3, 40)) > 0.2
+    got = resample_spectrum(*map(torch.from_numpy, (wl, flux, valid)), grid).numpy()
+    for i in range(3):
+        want = np.asarray(jax_resample(jnp.asarray(wl[i]), jnp.asarray(flux[i]),
+                                       jnp.asarray(valid[i]), jnp.asarray(grid)))
+        np.testing.assert_allclose(got[i], want, rtol=1e-5, atol=1e-5)
+        one = resample_spectrum(*(torch.from_numpy(a[i]) for a in (wl, flux, valid)), grid)
+        np.testing.assert_array_equal(one.numpy(), got[i])
 
 
 def test_port_config_copies_the_published_widths():

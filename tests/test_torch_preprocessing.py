@@ -18,7 +18,7 @@ from applecider_tpu_torch.preprocessing import fitsio as tf
 from applecider_tpu_torch.preprocessing import photometry as tp
 from applecider_tpu_torch.preprocessing import spectra as tsp
 from applecider_tpu_torch.preprocessing.table import parse_float, read_csv
-from applecider_tpu_torch.testing import make_corpus as port_make_corpus
+from applecider_tpu_torch.testing import BTS_CLASS_WEIGHTS, make_corpus as port_make_corpus
 
 
 def assert_bit_equal(a, b, what=""):
@@ -147,12 +147,20 @@ def _alerts_equal(a, b):
             assert gzip.decompress(x[k]["stampData"]) == gzip.decompress(y[k]["stampData"])
 
 
-@pytest.mark.parametrize("kw", [{}, {"learnable": True, "n_alerts": 3, "n_photometry": 12}])
+@pytest.mark.parametrize("kw", [{}, {"learnable": True, "n_alerts": 3, "n_photometry": 12},
+                                {"learnable": True, "n_alerts": 2, "n_photometry": 10,
+                                 "n_objects": 12, "class_weights": BTS_CLASS_WEIGHTS}])
 def test_make_corpus_matches_jax(tmp_path, kw):
-    args = dict(n_objects=5, seed=11, **kw)
+    args = {"n_objects": 5, "seed": 11, **kw}
     jd, jl = jax_make_corpus(tmp_path / "jax", **args)
     td, tl = port_make_corpus(tmp_path / "port", **args)
     assert jl.read_bytes() == tl.read_bytes()
+    if "class_weights" in kw:  # drawn, with one object of each class first
+        from applecider_tpu.testing import BTS_CLASS_WEIGHTS as JAX_WEIGHTS
+
+        assert BTS_CLASS_WEIGHTS == JAX_WEIGHTS
+        labels = [r.split(",")[1] for r in tl.read_text().splitlines()[1:]]
+        assert len(set(labels[:5])) == 5 and labels[5:] != labels[:7]  # not round-robin
     assert _ids(jd) == _ids(td)
     for obj in _ids(jd):
         for name in ("photometry.csv", "spectra.csv"):

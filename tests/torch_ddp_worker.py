@@ -193,7 +193,72 @@ def dropout_job(rank: int, world: int, args: dict) -> dict:
     return res
 
 
-JOBS = {"fit": fit_job, "runtime": runtime_job, "streams": streams_job, "dropout": dropout_job}
+def mesh_groups_job(rank: int, world: int, args: dict) -> dict:
+    """``make_mesh(shape)`` called twice: whether each axis's group is the
+    same object both times, and how many process groups the calls made."""
+    import torch.distributed as dist
+
+    from applecider_tpu_torch.parallel import mesh as mesh_mod
+    from applecider_tpu_torch.parallel.multihost import maybe_initialize
+
+    maybe_initialize(config({}, args["tmp"], world, rank), "cpu")
+    made = []
+    new_group = dist.new_group
+
+    def counted(*a, **k):
+        made.append(a[0] if a else k.get("ranks"))
+        return new_group(*a, **k)
+
+    dist.new_group = counted
+    try:
+        first = mesh_mod.make_mesh(args["shape"])
+        after_first = len(made)
+        second = mesh_mod.make_mesh(args["shape"])
+    finally:
+        dist.new_group = new_group
+    x = torch.full((1,), float(rank + 1))
+    if "data" in second.groups:  # a collective over the reused group still runs
+        dist.all_reduce(x, group=second.group("data"))
+    return {"axes": sorted(first.groups), "same": {a: second.groups[a] is g
+                                                   for a, g in first.groups.items()},
+            "made_first": after_first, "made_second": len(made) - after_first,
+            "data_sum": float(x[0])}
+
+
+def frozen_fusion_job(rank: int, world: int, args: dict) -> dict:
+    """The fusion model at tiny widths in f32, dropout 0: ``steps`` steps of
+    a global batch (split over the ranks) from seed 0, with
+    ``train.freeze_params`` = ``args["freeze"]``, then ``predict`` in dataset
+    order on the trained weights."""
+    from applecider_tpu_torch.datasets.loader import DataLoader
+    from applecider_tpu_torch.models import build_fusion_model
+    from applecider_tpu_torch.models.fusion import AppleCiderTask
+    from applecider_tpu_torch.ops.dropout import FastDropout
+    from applecider_tpu_torch.testing import SyntheticFusionDataset
+    from applecider_tpu_torch.train.trainer import Trainer
+
+    cfg = config({**args["overrides"], "train": {**args["overrides"].get("train", {}),
+                                                 "freeze_params": args["freeze"]}},
+                 args["tmp"], world, rank)
+    model = build_fusion_model(cfg, device="cpu", dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(0))
+    for m in model.modules():  # AstroMiNN's dropout rates are fixed, not configured
+        if isinstance(m, FastDropout):
+            m.rate = 0.0
+    trainer = Trainer(AppleCiderTask(cfg, model), cfg, args["tmp"] / "run", device="cpu")
+    shards = {"num_shards": trainer.mesh.shape["data"], "shard_index": trainer.data_index}
+    data = {k: args[k] for k in ("max_len", "spec_bins")}
+    trainer.fit(DataLoader(SyntheticFusionDataset(args["batch"] * args["steps"], seed=2, **data),
+                           batch_size=args["batch"] // shards["num_shards"], shuffle=False,
+                           drop_last=True, prefetch=0, **shards), epochs=1)
+    infer = DataLoader(SyntheticFusionDataset(args["n_predict"], seed=3, **data),
+                       batch_size=args["batch"] // shards["num_shards"], shuffle=False,
+                       prefetch=0, **shards)
+    return {"preds": trainer.predict(infer), "state": _numpy_state(trainer.model)}
+
+
+JOBS = {"fit": fit_job, "runtime": runtime_job, "streams": streams_job, "dropout": dropout_job,
+        "mesh_groups": mesh_groups_job, "frozen_fusion": frozen_fusion_job}
 
 
 # ------------------------------------------------------------ launching
