@@ -34,7 +34,9 @@ probabilities are gathered, so every rank returns every row in input order.
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import threading
+from typing import ClassVar, Optional
 
 import numpy as np
 import torch
@@ -463,6 +465,37 @@ class ShardedRaw(dict):
 
 
 # ------------------------------------------------------- host packing
+@dataclasses.dataclass
+class PackCounts:
+    """How often each path of the host pack ran in this process, cumulative
+    (a worker process keeps its own): ``batches`` packed, ``photo_sorted``
+    batches whose light curves took the lexsort, ``spectra`` packed,
+    ``spectra_sorted`` overlong spectra sorted by wavelength before
+    decimation, ``spectra_decimated`` spectra longer than the packed width,
+    ``scatter_sorted`` spectra blocks whose fitted spectra took the lexsort."""
+
+    batches: int = 0
+    photo_sorted: int = 0
+    spectra: int = 0
+    spectra_sorted: int = 0
+    spectra_decimated: int = 0
+    scatter_sorted: int = 0
+    _lock: ClassVar[threading.Lock] = threading.Lock()
+
+    def add(self, **counts: int) -> None:
+        with self._lock:  # threads may pack at once
+            for name, n in counts.items():
+                setattr(self, name, getattr(self, name) + n)
+
+    def reset(self) -> None:
+        with self._lock:
+            for f in dataclasses.fields(self):
+                setattr(self, f.name, 0)
+
+
+PACK_COUNTS = PackCounts()
+
+
 def decimate_spectrum(wl: np.ndarray, flux: np.ndarray, max_points: int):
     """Bin-average an overlong raw spectrum down to ``max_points`` equal-count
     segments over its full wavelength range (sorted first if needed);
@@ -470,28 +503,149 @@ def decimate_spectrum(wl: np.ndarray, flux: np.ndarray, max_points: int):
     n = len(wl)
     if n <= max_points:
         return wl, flux
-    wl = np.asarray(wl, np.float64)
-    flux = np.asarray(flux, np.float64)
-    if np.any(np.diff(wl) < 0):
-        order = np.argsort(wl, kind="stable")
-        wl, flux = wl[order], flux[order]
-    edges = np.linspace(0, n, max_points + 1).astype(np.int64)
-    counts = np.diff(edges)
-    wl_d = np.add.reduceat(wl, edges[:-1]) / counts
-    fx_d = np.add.reduceat(flux, edges[:-1]) / counts
-    return wl_d.astype(np.float32), fx_d.astype(np.float32)
+    wl_d, fx_d, _ = _decimate(np.asarray(wl, np.float64), np.asarray(flux, np.float64),
+                              np.array([n], np.int64), max_points)
+    return wl_d[0], fx_d[0]
 
 
-def _fitted_spectra(samples: list[dict], idx: list[int], W: int):
-    """Per-sample (wl, flux) arrays fitted to width W (decimated if longer)."""
-    return [decimate_spectrum(np.asarray(samples[i]["spec_wl"], np.float32),
-                              np.asarray(samples[i]["spec_flux"], np.float32), W)
-            for i in idx]
+def _starts(lens: np.ndarray) -> np.ndarray:
+    """Offsets of consecutive segments of ``lens`` in their concatenation."""
+    starts = np.zeros_like(lens)
+    np.cumsum(lens[:-1], out=starts[1:])
+    return starts
+
+
+def _concat(arrays, dtype) -> np.ndarray:
+    """One array of ``arrays`` end to end, each cast to ``dtype`` as
+    ``np.asarray(a, dtype)`` casts it."""
+    return np.concatenate(arrays, dtype=dtype, casting="unsafe")
+
+
+def _decimate(wl: np.ndarray, fx: np.ndarray, lens: np.ndarray, W: int):
+    """Bin-average spectra longer than ``W``, given end to end as float64
+    ``wl`` and ``fx`` with lengths ``lens``, each to ``W`` equal-count
+    segments over its full wavelength range, all in one ``reduceat``. A
+    spectrum with a descending step is stably sorted by wavelength first
+    (NaN compares False). Returns float32 (len(lens), W) wavelengths and
+    fluxes, and how many spectra were sorted. The inputs are not changed."""
+    starts = _starts(lens)
+    desc = wl[1:] < wl[:-1]
+    desc[starts[1:] - 1] = False  # steps from one spectrum to the next
+    sorted_ = np.unique(np.searchsorted(starts, np.flatnonzero(desc), side="right") - 1)
+    if len(sorted_):
+        wl, fx = wl.copy(), fx.copy()
+        for k in sorted_:
+            seg = slice(starts[k], starts[k] + lens[k])
+            order = np.argsort(wl[seg], kind="stable")
+            wl[seg], fx[seg] = wl[seg][order], fx[seg][order]
+    # np.linspace(0, n, W + 1).astype(np.int64) for every spectrum at once
+    edges = np.arange(W + 1, dtype=np.float64) * (lens / W)[:, None]
+    edges[:, -1] = lens
+    edges = edges.astype(np.int64)
+    at = (edges[:, :-1] + starts[:, None]).ravel()
+    counts = np.diff(edges, axis=1).ravel()
+    wl_d = (np.add.reduceat(wl, at) / counts).astype(np.float32).reshape(-1, W)
+    fx_d = (np.add.reduceat(fx, at) / counts).astype(np.float32).reshape(-1, W)
+    return wl_d, fx_d, len(sorted_)
+
+
+def _fit_spectra(samples: list[dict], idx: list[int], W: int):
+    """The spectra of ``samples[idx]`` fitted to ``W`` points, concatenated in
+    order: (fitted lengths, float32 wavelengths, float32 fluxes). What fits
+    passes through; every longer spectrum is ``decimate_spectrum``'s, all in
+    one ``_decimate`` call."""
+    wl = [samples[i]["spec_wl"] for i in idx]
+    fx = [samples[i]["spec_flux"] for i in idx]
+    n = np.fromiter(map(len, wl), np.int64, count=len(idx))
+    over = n > W
+    PACK_COUNTS.add(spectra=len(idx), spectra_decimated=int(over.sum()))
+    if not over.any():
+        return n, _concat(wl, np.float32), _concat(fx, np.float32)
+    owl = _concat([w for w, o in zip(wl, over) if o], np.float32).astype(np.float64)
+    ofx = _concat([f for f, o in zip(fx, over) if o], np.float32).astype(np.float64)
+    dwl, dfx, n_sorted = _decimate(owl, ofx, n[over], W)
+    PACK_COUNTS.add(spectra_sorted=n_sorted)
+    dec = iter(zip(dwl, dfx))
+    fitted = [next(dec) if o else (w, f) for w, f, o in zip(wl, fx, over)]
+    return (np.minimum(n, W), _concat([w for w, _ in fitted], np.float32),
+            _concat([f for _, f in fitted], np.float32))
+
+
+def _pack_spectra(samples: list[dict], idx: list[int], rows: np.ndarray,
+                  wl: np.ndarray, fx: np.ndarray, vd: np.ndarray) -> None:
+    """Fit the spectra of ``samples[idx]`` to the width of ``wl`` and write
+    them into its ascending ``rows`` as ascending-wavelength prefixes. The
+    stable lexsort that orders them runs only when a fitted spectrum does
+    not ascend (NaN does not)."""
+    fit, wl_fit, fx_fit = _fit_spectra(samples, idx, wl.shape[1])
+    asc = wl_fit[1:] >= wl_fit[:-1]
+    asc[np.cumsum(fit)[:-1] - 1] = True  # steps from one spectrum to the next
+    if not asc.all():
+        PACK_COUNTS.add(scatter_sorted=1)
+        order = np.lexsort((wl_fit, np.repeat(rows, fit)))
+        wl_fit, fx_fit = wl_fit[order], fx_fit[order]
+    vd[rows] = np.arange(wl.shape[1]) < fit[:, None]
+    wl[vd] = wl_fit
+    fx[vd] = fx_fit
 
 
 def _has_spectrum(s: dict) -> bool:
     wl = s.get("spec_wl")
     return wl is not None and len(wl) >= 2
+
+
+_PHOTO_COLUMNS = (("photo_t", np.float32, 0), ("photo_flux", np.float32, 0),
+                  ("photo_err", np.float32, 1), ("photo_band", np.int32, 0))
+
+
+def _pack_rows(samples: list[dict], max_photo: int, length_buckets, image_dtype) -> dict:
+    """``pack_alert_batch``'s photometry, ``meta19`` and ``image`` arrays."""
+    PACK_COUNTS.add(batches=1)
+    B = len(samples)
+    if length_buckets and samples:
+        need = min(max(len(s["photo_t"]) for s in samples), max_photo)
+        usable = [b for b in sorted(length_buckets) if b <= max_photo]
+        max_photo = next((b for b in usable if b >= need), max_photo)
+    P = max_photo
+    out = {k: np.full((B, P), fill, dtype) for k, dtype, fill in _PHOTO_COLUMNS}
+    img_shape = np.asarray(samples[0]["image"]).shape if samples else (63, 63, 3)
+    if not samples:
+        return {**out, "photo_valid": np.zeros((0, P), bool),
+                "meta19": np.empty((0, 19), np.float32),
+                "image": np.zeros((0, *img_shape), image_dtype)}
+
+    # photometry: each curve a time-ascending prefix of its row, its earliest
+    # P points; the lexsort and the index gather run only when needed
+    lens = np.fromiter((len(s["photo_t"]) for s in samples), np.int64, count=B)
+    cols = {k: _concat([s[k] for s in samples], dtype) for k, dtype, _ in _PHOTO_COLUMNS}
+    t_all = cols["photo_t"]
+    if t_all.shape[0] > 1:
+        # NaN compares False and takes the sort
+        asc = np.diff(t_all) >= 0
+        bnd = np.cumsum(lens)[:-1] - 1  # comparisons across samples are exempt
+        asc[bnd[(bnd >= 0) & (bnd < asc.shape[0])]] = True
+        presorted = bool(asc.all())
+    else:
+        presorted = True
+    kept = np.minimum(lens, P)
+    valid = np.arange(P) < kept[:, None]
+    if presorted and int(kept.sum()) == t_all.shape[0]:
+        src = None
+    else:
+        keep = np.arange(t_all.shape[0], dtype=np.int64) - np.repeat(_starts(lens), lens) < P
+        if presorted:
+            src = np.flatnonzero(keep)
+        else:
+            PACK_COUNTS.add(photo_sorted=1)
+            # stable by (sample, time): each sample's points stay in its rows
+            src = np.lexsort((t_all, np.repeat(np.arange(B, dtype=np.int64), lens)))[keep]
+    for k, _, _ in _PHOTO_COLUMNS:
+        out[k][valid] = cols[k] if src is None else cols[k][src]
+    out["photo_valid"] = valid
+    out["meta19"] = np.stack([s["meta19"] for s in samples]).astype(np.float32, copy=False)
+    out["image"] = np.empty((B, *img_shape), image_dtype)
+    np.stack([s["image"] for s in samples], out=out["image"], casting="unsafe")
+    return out
 
 
 def pack_alert_batch(samples: list[dict], max_photo: int = 257, max_spec: int = 512,
@@ -506,83 +660,20 @@ def pack_alert_batch(samples: list[dict], max_photo: int = 257, max_spec: int = 
     smallest bucket covering the longest curve. Spectra are fitted to
     ``max_spec`` points and wavelength-sorted.
     """
+    out = _pack_rows(samples, max_photo, length_buckets, image_dtype)
+    image = out.pop("image")
     B = len(samples)
-    if length_buckets and samples:
-        need = min(max(len(s["photo_t"]) for s in samples), max_photo)
-        usable = [b for b in sorted(length_buckets) if b <= max_photo]
-        max_photo = next((b for b in usable if b >= need), max_photo)
-    img_shape = np.asarray(samples[0]["image"]).shape if samples else (63, 63, 3)
-    out = {
-        "photo_t": np.zeros((B, max_photo), np.float32),
-        "photo_flux": np.zeros((B, max_photo), np.float32),
-        "photo_err": np.ones((B, max_photo), np.float32),
-        "photo_band": np.zeros((B, max_photo), np.int32),
-        "photo_valid": np.zeros((B, max_photo), bool),
-        "meta19": np.empty((B, 19), np.float32),
-        "spec_wl": np.zeros((B, max_spec), np.float32),
-        "spec_flux": np.zeros((B, max_spec), np.float32),
-        "spec_valid": np.zeros((B, max_spec), bool),
-        "has_spectrum": np.zeros((B,), bool),
-    }
-    if not samples:
-        out["image"] = np.zeros((0, *img_shape), image_dtype)
-        return out
-
-    # photometry: flat concatenation, one lexsort, one scatter per column
-    lens = np.fromiter((len(s["photo_t"]) for s in samples), np.int64, count=B)
-    t_all = np.concatenate([np.asarray(s["photo_t"], np.float32) for s in samples])
-    sid = np.repeat(np.arange(B, dtype=np.int64), lens)
-    if t_all.shape[0] > 1:
-        # skip the sort when every sample's times already ascend (NaN
-        # compares False and takes the sort)
-        asc = np.diff(t_all) >= 0
-        bnd = np.cumsum(lens)[:-1] - 1  # comparisons across samples are exempt
-        asc[bnd[(bnd >= 0) & (bnd < asc.shape[0])]] = True
-        presorted = bool(asc.all())
-    else:
-        presorted = True
-    order = None if presorted else np.lexsort((t_all, sid))
-    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
-    col = np.arange(t_all.shape[0], dtype=np.int64) - np.repeat(starts, lens)
-    keep = col < max_photo  # truncate overlong light curves (keep earliest)
-    rows, cols = sid[keep], col[keep]
-    src = np.flatnonzero(keep) if order is None else order[keep]
-    out["photo_t"][rows, cols] = t_all[src]
-    f_all = np.concatenate([np.asarray(s["photo_flux"], np.float32) for s in samples])
-    e_all = np.concatenate([np.asarray(s["photo_err"], np.float32) for s in samples])
-    b_all = np.concatenate([np.asarray(s["photo_band"], np.int32) for s in samples])
-    out["photo_flux"][rows, cols] = f_all[src]
-    out["photo_err"][rows, cols] = e_all[src]
-    out["photo_band"][rows, cols] = b_all[src]
-    out["photo_valid"][rows, cols] = True
-
-    img = np.empty((B, *img_shape), image_dtype)
-    for i, s in enumerate(samples):
-        img[i] = s["image"]
-    out["image"] = img
-    out["meta19"] = np.stack([s["meta19"] for s in samples]).astype(np.float32, copy=False)
-
+    out.update(spec_wl=np.zeros((B, max_spec), np.float32),
+               spec_flux=np.zeros((B, max_spec), np.float32),
+               spec_valid=np.zeros((B, max_spec), bool),
+               has_spectrum=np.zeros((B,), bool))
     spec_idx = [i for i, s in enumerate(samples) if _has_spectrum(s)]
     if spec_idx:
-        fitted = _fitted_spectra(samples, spec_idx, max_spec)
-        srows = np.repeat(np.asarray(spec_idx, np.int64), [len(w) for w, _ in fitted])
-        _scatter_spectra(fitted, srows, out["spec_wl"], out["spec_flux"], out["spec_valid"])
-        out["has_spectrum"][np.asarray(spec_idx)] = True
+        _pack_spectra(samples, spec_idx, np.asarray(spec_idx, np.int64),
+                      out["spec_wl"], out["spec_flux"], out["spec_valid"])
+        out["has_spectrum"][spec_idx] = True
+    out["image"] = image
     return out
-
-
-def _scatter_spectra(fitted, srows, wl, fx, vd) -> None:
-    """Write fitted spectra into rows ``srows`` as ascending-wavelength
-    prefixes (one stable lexsort of the concatenated stream)."""
-    slens = np.fromiter((len(w) for w, _ in fitted), np.int64, count=len(fitted))
-    wl_all = np.concatenate([w for w, _ in fitted])
-    fx_all = np.concatenate([f for _, f in fitted])
-    sstarts = np.concatenate([[0], np.cumsum(slens)[:-1]])
-    scols = np.arange(wl_all.shape[0], dtype=np.int64) - np.repeat(sstarts, slens)
-    sorder = np.lexsort((wl_all, srows))
-    wl[srows, scols] = wl_all[sorder]
-    fx[srows, scols] = fx_all[sorder]
-    vd[srows, scols] = True
 
 
 class RoutedAlertStream:
@@ -662,9 +753,7 @@ def pack_compact(samples: list[dict], spec_buckets, length_buckets=None, pad_to=
     batch's spectra after a zero row 0, their count rounded up to
     ``spec_buckets``. ``pad_to`` pads the packed batch rows with copies of
     row 0 (callers slice the pad off the output)."""
-    raw = pack_alert_batch(samples, max_spec=1, length_buckets=length_buckets)
-    for k in ("spec_wl", "spec_flux", "spec_valid", "has_spectrum"):
-        del raw[k]
+    raw = _pack_rows(samples, 257, length_buckets, np.float32)
     B = len(samples)
     W = SPEC_POINTS
     spec_idx = [i for i, s in enumerate(samples) if _has_spectrum(s)]
@@ -675,10 +764,7 @@ def pack_compact(samples: list[dict], spec_buckets, length_buckets=None, pad_to=
     has = np.zeros((S + 1,), bool)
     gather = np.zeros((B,), np.int32)
     if spec_idx:
-        fitted = _fitted_spectra(samples, spec_idx, W)
-        srows = np.repeat(1 + np.arange(len(spec_idx), dtype=np.int64),
-                          [len(w) for w, _ in fitted])
-        _scatter_spectra(fitted, srows, wl, fx, vd)
+        _pack_spectra(samples, spec_idx, 1 + np.arange(len(spec_idx), dtype=np.int64), wl, fx, vd)
         has[1:len(spec_idx) + 1] = True
         gather[np.asarray(spec_idx)] = 1 + np.arange(len(spec_idx), dtype=np.int32)
     raw.update(spec_wl=wl, spec_flux=fx, spec_valid=vd, spec_has=has, spec_gather=gather)

@@ -6,6 +6,9 @@ segment sums may be reordered; resample atol 1e-5); its
 bound of test_torch_pipeline.py), and the ``skip_spectra`` pipeline == the
 full one on batches without spectra."""
 
+import dataclasses
+import sys
+import threading
 from functools import partial
 
 import jax
@@ -45,6 +48,42 @@ def _assert_bit_equal(a: dict, b: dict):
         np.testing.assert_array_equal(a[k].view(np.uint8), b[k].view(np.uint8), err_msg=k)
 
 
+def _with_spectrum(s, wl, flux=None):
+    wl = np.asarray(wl, np.float32)
+    flux = np.cos(np.arange(wl.shape[0]) / 7.0) if flux is None else flux
+    return {**s, "spec_wl": wl, "spec_flux": np.asarray(flux, np.float32)}
+
+
+def _spectra_edges(rng):
+    """Spectra at and around the packed width (512), descending, with a NaN
+    wavelength (short and overlong), and of one point (no spectrum)."""
+    asc = lambda n: np.linspace(3500, 9500, n)  # noqa: E731
+    base = lambda: _sample(rng, np.sort(rng.uniform(0, 50, 5)))  # noqa: E731
+    nan_short, nan_long = asc(300), asc(1500)
+    nan_short[17] = np.nan
+    nan_long[900] = np.nan
+    nan_long_desc = asc(800)
+    nan_long_desc[[100, 400]] = np.nan, 3600.0  # a descent past the NaN
+    return [_with_spectrum(base(), asc(512)), _with_spectrum(base(), asc(513)), base(),
+            _with_spectrum(base(), asc(2000)), _with_spectrum(base(), asc(700)[::-1]),
+            _with_spectrum(base(), asc(90)[::-1]), _with_spectrum(base(), nan_short),
+            _with_spectrum(base(), nan_long), _with_spectrum(base(), nan_long_desc),
+            _with_spectrum(base(), [5000.0]), _with_spectrum(base(), asc(2))]
+
+
+SPEC30_BATCHES = {"spec30_63": (26, 63), "spec30_257": (27, 257)}  # name -> (seed, bucket)
+
+
+def _spec30(case):
+    """A 1,024-alert serving batch drawn as ``alerts-spec30`` draws its
+    alerts (30% with a spectrum of 80-2,000 points), with light curves of 20
+    points up to the case's length bucket, as the feeder batches them; and
+    that bucket."""
+    seed, bucket = SPEC30_BATCHES[case]
+    return make_alert_samples(1024, seed=seed, spectrum_frac=0.3, length_range=(20, bucket),
+                              spectrum_points=(80, 2000)), bucket
+
+
 def _pack_cases(rng):
     asc = [_sample(rng, [1.0, 2.0, 5.0, 9.0]), _sample(rng, [0.5, 3.0]),
            _sample(rng, np.arange(12.0))]
@@ -56,6 +95,7 @@ def _pack_cases(rng):
     long_spec = _sample(rng, [0.0, 1.0])
     long_spec["spec_wl"] = np.linspace(9500, 3500, 2000).astype(np.float32)  # descending
     long_spec["spec_flux"] = np.sin(long_spec["spec_wl"] / 300.0).astype(np.float32)
+    long_lc = _sample(rng, np.sort(rng.uniform(0, 300, 300)))
     return {
         "presorted": (asc, {}),
         "shuffled": (shuffled, {}),
@@ -71,12 +111,24 @@ def _pack_cases(rng):
                     {"max_photo": 4}),
         "bf16_image": (make_alert_samples(4, seed=11), {"max_photo": 64,
                                                         "image_dtype": jnp.bfloat16}),
+        "spectra_edges": (_spectra_edges(rng), {}),
+        "spectra_edges_width_300": (_spectra_edges(rng), {"max_spec": 300}),
+        "one_point_spectra": ([_with_spectrum(_sample(rng, [1.0]), [4000.0]), _sample(rng, [2.0])],
+                              {}),
+        "curve_over_257": ([long_lc, *asc], {}),
+        "curve_over_257_unsorted": ([{**long_lc, "photo_t": long_lc["photo_t"][::-1].copy()},
+                                     *shuffled], {"length_buckets": (63, 257)}),
     }
 
 
-def test_pack_alert_batch_bit_equal_to_jax(rng):
-    for name, (samples, kw) in _pack_cases(rng).items():
-        _assert_bit_equal(ts.pack_alert_batch(samples, **kw), js.pack_alert_batch(samples, **kw))
+@pytest.mark.parametrize("case", [*_pack_cases(np.random.default_rng(0)), *SPEC30_BATCHES])
+def test_pack_alert_batch_bit_equal_to_jax(rng, case):
+    if case in SPEC30_BATCHES:
+        samples, bucket = _spec30(case)
+        kw = {"length_buckets": (bucket,)}
+    else:
+        samples, kw = _pack_cases(rng)[case]
+    _assert_bit_equal(ts.pack_alert_batch(samples, **kw), js.pack_alert_batch(samples, **kw))
 
 
 def test_decimate_spectrum_keeps_full_range():
@@ -89,18 +141,112 @@ def test_decimate_spectrum_keeps_full_range():
     assert got[0][0] < 3520 and got[0][-1] > 9480
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_decimate_spectrum_sorts_a_copy(dtype):
+    wl = np.linspace(9500, 3500, 1300).astype(dtype)
+    wl[700] = np.nan
+    fx = np.cos(wl / 250.0).astype(dtype)
+    wl0, fx0 = wl.copy(), fx.copy()
+    got = ts.decimate_spectrum(wl, fx, 512)
+    want = js.decimate_spectrum(wl, fx, 512)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w, equal_nan=True)
+    assert np.array_equal(wl, wl0, equal_nan=True) and np.array_equal(fx, fx0, equal_nan=True)
+
+
+SERVING_SPEC_BUCKETS = (0, 4, 8, 16, 32, 64, 96, 112, 128, 192, 256, 320, 384, 512)
+
+
+def _place_cases(rng):
+    """name -> (batch, length_buckets, spec_buckets)."""
+    mixed = make_alert_samples(7, seed=5, spectrum_frac=0.5, length_range=(1, 40),
+                               spectrum_points=(10, 900))
+    cases = _pack_cases(rng)
+    small = (0, 2, 4, 8)
+    return {
+        "mixed": (mixed, (16, 64), small),
+        "one": (mixed[:1], (16, 64), small),
+        "empty": ([], (16, 64), small),
+        "spectra_edges": (_spectra_edges(rng), (16, 64), small),
+        "no_spectra": (cases["presorted"][0], (16, 64), small),
+        "curve_unsorted": (cases["shuffled"][0], (16, 64), small),
+        "curve_over_257": (cases["curve_over_257_unsorted"][0], (63, 257), small),
+    }
+
+
+@pytest.mark.parametrize("case", [*_place_cases(np.random.default_rng(0)), *SPEC30_BATCHES])
 @pytest.mark.parametrize("pad_to", [None, 8])
-def test_fused_place_host_only_bit_equal_to_jax(rng, pad_to):
-    samples = make_alert_samples(7, seed=5, spectrum_frac=0.5, length_range=(1, 40),
-                                 spectrum_points=(10, 900))
+def test_fused_place_host_only_bit_equal_to_jax(rng, pad_to, case):
+    if case in SPEC30_BATCHES:
+        batch, bucket = _spec30(case)
+        length_buckets, spec_buckets = (bucket,), SERVING_SPEC_BUCKETS
+    else:
+        batch, length_buckets, spec_buckets = _place_cases(rng)[case]
     jf = js.FusedSpectraStream.__new__(js.FusedSpectraStream)  # placement only, no task
-    jf.spec_buckets, jf.max_spec = (0, 2, 4, 8), 512
+    jf.spec_buckets, jf.max_spec = spec_buckets, 512
     tf = ts.FusedSpectraStream.__new__(ts.FusedSpectraStream)
-    tf.spec_buckets, tf.max_spec = (0, 2, 4, 8), 512
-    for batch in (samples, samples[:1], []):
-        kw = {"length_buckets": (16, 64), "pad_to": pad_to}
-        _assert_bit_equal(tf.place(batch, host_only=True, **kw),
-                          js.FusedSpectraStream.place(jf, batch, host_only=True, **kw))
+    tf.spec_buckets, tf.max_spec = spec_buckets, 512
+    if pad_to is not None:
+        pad_to = max(pad_to, len(batch) + 3)
+    kw = {"length_buckets": length_buckets, "pad_to": pad_to}
+    _assert_bit_equal(tf.place(batch, host_only=True, **kw),
+                      js.FusedSpectraStream.place(jf, batch, host_only=True, **kw))
+
+
+def _counted(pack, samples) -> dict:
+    ts.PACK_COUNTS.reset()
+    pack(samples)
+    return dataclasses.asdict(ts.PACK_COUNTS)
+
+
+@pytest.mark.parametrize("pack", [
+    lambda samples: ts.pack_compact(samples, SERVING_SPEC_BUCKETS),
+    lambda samples: ts.pack_alert_batch(samples),
+], ids=["pack_compact", "pack_alert_batch"])
+def test_pack_counts_follow_the_paths_taken(rng, pack):
+    asc = np.linspace(3500, 9500, 600)
+    presorted = [_with_spectrum(_sample(rng, [1.0, 2.0, 3.0]), asc),
+                 _with_spectrum(_sample(rng, [0.5, 4.0]), asc[:100]), _sample(rng, [2.0])]
+    assert _counted(pack, presorted) == {
+        "batches": 1, "photo_sorted": 0, "spectra": 2, "spectra_sorted": 0,
+        "spectra_decimated": 1, "scatter_sorted": 0}
+    assert _counted(pack, []) == {
+        "batches": 1, "photo_sorted": 0, "spectra": 0, "spectra_sorted": 0,
+        "spectra_decimated": 0, "scatter_sorted": 0}
+    nan_short = asc[:100].copy()
+    nan_short[5] = np.nan
+    unsorted = [_with_spectrum(_sample(rng, [3.0, 1.0, 2.0]), asc[::-1]),
+                _with_spectrum(_sample(rng, [1.0]), asc[::-1]),
+                _with_spectrum(_sample(rng, [0.0]), nan_short), _sample(rng, [2.0, 5.0])]
+    assert _counted(pack, unsorted) == {
+        "batches": 1, "photo_sorted": 1, "spectra": 3, "spectra_sorted": 2,
+        "spectra_decimated": 2, "scatter_sorted": 1}
+
+
+def test_pack_counts_lose_no_count_across_threads(rng):
+    batch = [_with_spectrum(_sample(rng, [1.0, 2.0]), np.linspace(4000, 8000, 600)),
+             _sample(rng, [3.0])]
+    n_threads, calls = 16, 25
+
+    def pack():
+        for _ in range(calls):
+            ts.pack_compact(batch, SERVING_SPEC_BUCKETS)
+
+    ts.PACK_COUNTS.reset()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=pack) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    n = n_threads * calls
+    assert (ts.PACK_COUNTS.batches, ts.PACK_COUNTS.spectra, ts.PACK_COUNTS.spectra_decimated) == (
+        n, n, n)
 
 
 def _lc_batch(rng, B, P, t_max=30.0):
